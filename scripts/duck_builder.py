@@ -6,9 +6,9 @@ scene/procedural.py SceneBuilder (different container: GLB; different
 buffer layout: one INTERLEAVED position+normal+texcoord vertex buffer with
 byteStride; u16 indices; textures embedded as PNG bufferViews; node
 rotations as quaternions).  A loader bug mirrored into SceneBuilder cannot
-hide from assets produced here (VERDICT r2 "what's missing" item 1 — the
+hide from assets produced here (the
 reference author's manual matrix is Duck.glb / Sponza / AlphaBlendModeTest,
-/root/reference/zig_raytracing_contest.sublime-project build_systems).
+zig_raytracing_contest.sublime-project build_systems).
 
 The asset is a parametric rubber duck (~12k triangles: lathe/UV-sphere
 body, head, flattened-cone beak, tail, eyes) with a REAL 512×512 baked
@@ -20,7 +20,6 @@ alone resolves the width, like Duck.glb renders in the reference matrix.
 
 from __future__ import annotations
 
-import io
 import json
 import struct
 from pathlib import Path
@@ -140,11 +139,9 @@ class GlbWriter:
         return idx
 
     def add_png_texture(self, rgba: np.ndarray, wrap=WRAP_REPEAT):
-        from PIL import Image
+        from zig_raytracing_contest_tpu.utils.image_io import encode_png
 
-        buf = io.BytesIO()
-        Image.fromarray(rgba).save(buf, format="PNG")
-        view = self.add_view(buf.getvalue())
+        view = self.add_view(encode_png(np.ascontiguousarray(rgba)))
         self.images.append({"bufferView": view, "mimeType": "image/png"})
         self.samplers.append({"wrapS": wrap, "wrapT": wrap})
         self.textures.append(

@@ -1,7 +1,7 @@
-"""Sponza-class multi-material interior asset (VERDICT r3 item 5).
+"""Sponza-class multi-material interior asset.
 
 The reference author's heaviest manual test is Sponza
-(/root/reference/zig_raytracing_contest.sublime-project build_systems:
+(the reference's zig_raytracing_contest.sublime-project build_systems:
 "Sponza/Sponza.gltf") — an interior atrium with 100k+ triangles, DOZENS of
 real textures/materials, and strong interior occlusion.  The repo's large
 benches were single-texture terrains, so the multi-material STREAMING-SHADE
@@ -14,10 +14,9 @@ regime at scale was unmeasured.  This builds an equivalent-class asset:
   - decorative pots (squashed spheres) and a wooden door
   - >= 21 DISTINCT procedural textures (marble/brick/plaster/mosaic/
     fresco/fabric/wood/grille), mixed REPEAT and CLAMP samplers, several
-    past the one-hot fast-path size
+    of 128x128 texels or more
   - an emissive skylight strip + wall sconces (the only lights)
-  - ~150k triangles total (past VMEM_RESIDENT_MAX_TRIS = 2^17 -> the
-    streaming trace kernel + HBM record table path)
+  - ~150k triangles total
 
 Exported through the spec-direct GlbWriter (scripts/duck_builder.py) — the
 INDEPENDENT second glTF writer — so loader bugs mirrored into

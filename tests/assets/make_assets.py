@@ -3,7 +3,7 @@
 Deliberately independent of zig_raytracing_contest_tpu.scene.procedural:
 these files exercise the loader from a second authoring path (raw glTF JSON
 + hand-packed little-endian buffers + data URIs), so a bug mirrored between
-SceneBuilder and the loader stays visible (VERDICT.md r1 missing #3).  The
+SceneBuilder and the loader stays visible.  The
 two scenes correspond to the reference author's manual test list
 (zig_raytracing_contest.sublime-project): a Duck-class textured mesh and an
 AlphaBlendModeTest-class scene (OPAQUE / MASK / BLEND side by side).

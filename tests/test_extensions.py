@@ -155,15 +155,6 @@ def test_config_parses_extension_keys(tmp_path):
     assert cfg.ext_flags.any
 
 
-def test_extensions_reject_forced_fused(box):
-    cam, scene = box
-    with pytest.raises(ValueError, match="XLA path"):
-        render_scene(
-            scene, cam, Config(num_samples=1, max_bounce=1, nee=True),
-            use_fused=True,
-        )
-
-
 def test_nee_two_sided_geometry_no_self_shadow(tmp_path):
     """Shadow rays must lift off along the shading normal: geometry authored
     two-sided (back-to-back quads, as the reference's single-sided triangles

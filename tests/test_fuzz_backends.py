@@ -1,8 +1,8 @@
-"""Property test: on randomized scenes, the two intersection backends and
-the native C++ tracer agree.
+"""Property test: on randomized scenes, the grid DDA, the Triton trace
+kernel (interpret mode) and the native C++ tracer agree.
 
 Each trial builds a random quad-soup scene (random transforms, materials,
-alpha modes, textures) and checks MXU-vs-grid trace visibility plus
+alpha modes, textures) and checks kernel-vs-grid trace visibility plus
 C++-vs-jax render agreement.  Catches regressions the hand-built scenes
 miss (degenerate transforms, grazing-angle tiles, odd material mixes).
 """
@@ -15,6 +15,7 @@ import pytest
 
 from zig_raytracing_contest_tpu.config import Config
 from zig_raytracing_contest_tpu.grid.builder import build_grid
+from zig_raytracing_contest_tpu.ops.trace_kernel import nearest_hit_triton
 from zig_raytracing_contest_tpu.render.pipeline import render_scene
 from zig_raytracing_contest_tpu.render.wavefront import trace_any
 from zig_raytracing_contest_tpu.scene import procedural
@@ -24,7 +25,7 @@ from zig_raytracing_contest_tpu.scene.gltf import load_gltf
 from zig_raytracing_contest_tpu.scene.materials import load_materials
 from zig_raytracing_contest_tpu.scene.types import build_device_scene
 
-pytestmark = pytest.mark.slow  # 4-seed MXU-vs-grid-vs-C++ property fuzz (interpret mode)
+pytestmark = pytest.mark.slow  # 4-seed kernel-vs-grid-vs-C++ property fuzz (interpret mode)
 
 
 def _random_scene(tmp_path, seed):
@@ -70,7 +71,13 @@ def test_random_scene_backend_agreement(tmp_path, seed):
     act = jnp.ones(len(dirs), bool)
 
     tg, _, _, ig = (np.asarray(x) for x in trace_any(scene_g, jnp.asarray(orig), jnp.asarray(dirs), act))
-    tm, _, _, im = (np.asarray(x) for x in trace_any(scene_m, jnp.asarray(orig), jnp.asarray(dirs), act))
+    tm, _, _, im = (
+        np.asarray(x)
+        for x in nearest_hit_triton(
+            scene_m.mxu, jnp.asarray(orig), jnp.asarray(dirs), act,
+            interpret=True,
+        )
+    )
     both = np.isfinite(tg) & np.isfinite(tm)
     assert (np.isfinite(tg) != np.isfinite(tm)).mean() < 0.02
     agree = (ig[both] == im[both]) | (np.abs(tg[both] - tm[both]) < 1e-3)

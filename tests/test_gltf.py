@@ -248,7 +248,7 @@ class TestMalformedPrimitives:
         """Missing POSITION: the reference's Accessor maps a missing
         accessor to a zero-length sentinel read (src/stage1.zig:122-147)
         and then reads undefined memory for an indexed primitive; we pin
-        the malformed case to a typed GltfError instead (VERDICT r2 §gap3).
+        the malformed case to a typed GltfError instead.
         """
         g = make_single_quad(tmp_path)
         del g.doc["meshes"][0]["primitives"][0]["attributes"]["POSITION"]

@@ -5,23 +5,14 @@ binary buffers (see make_assets.py) — produced WITHOUT scene/procedural.py,
 so a loader bug mirrored into SceneBuilder cannot hide here.  They cover the
 reference author's manual test list (Duck-class textured mesh; the
 AlphaBlendModeTest categories OPAQUE/MASK/BLEND with clamp sampling)
-(/root/reference/zig_raytracing_contest.sublime-project build_systems).
+(the reference's zig_raytracing_contest.sublime-project build_systems).
 
 Renders are deterministic per seed on the CPU backend; the tolerance only
-absorbs float-reassociation across jax/XLA versions.
-
-On-chip note (root-caused on the real v5e, round 3): the fused TPU path
-reproduces golden_duckish within 0.2% of pixels, but alpha_modes diverges
-in the alpha-tested regions on ANY backend pair.  The reference's alpha
-pass-through re-originates at ray.at(t + floatEps(f32))
-(/root/reference/src/stage3.zig:209, mirrored here) — an absolute 1.19e-7
-nudge that is a rounding no-op once t >= 2, so whether the re-trace
-phantom-re-hits the same triangle is decided by backend rounding (measured:
-XLA:CPU re-hits 1085/1957 pass-throughs, TPU 536).  Each phantom re-hit
-burns a bounce + an RNG draw, decorrelating trajectories completely in
-alpha regions; outside them CPU and TPU are bit-exact.  The on-chip gate
-(scripts/golden_tpu.py) therefore asserts a region-aware statistical bound;
-this suite compares on the CPU backend where renders are bit-stable.
+absorbs float-reassociation across jax/XLA versions.  The same envelope is
+checked on a GPU by ``chip_smoke.py`` (phase 4), which falls back to a
+region-aware statistical bound for alpha_modes only if its stochastic-alpha
+regions alone leave the envelope (stochastic alpha turns last-bit trace
+differences between backends into different RNG trajectories).
 """
 
 from pathlib import Path
@@ -54,8 +45,8 @@ def test_golden_duck_glb(tmp_path):
     byteStride vertex buffer, u16 indices, quaternion node rotations, a
     real 512×512 embedded-PNG texture (packed-gather shading regime), and
     an aspectRatio camera — the loader subset confronted with a file no
-    repo-internal SceneBuilder path produced (VERDICT r2 missing-item 1;
-    reference matrix: Duck.glb, sublime-project build_systems)."""
+    repo-internal SceneBuilder path produced (reference matrix: Duck.glb,
+    sublime-project build_systems)."""
     import sys
 
     sys.path.insert(0, str(Path(__file__).parent.parent / "scripts"))
@@ -115,11 +106,11 @@ def test_native_tracer_matches_golden(name):
     img, _, _ = render_cpu(scene, cam, spp=4, max_bounce=3, seed=12345)
     if name == "duckish":
         # Opaque scene: ULP-level trace differences don't amplify, so the
-        # C++ render matches the committed (MXU-path) golden directly.
+        # C++ render matches the committed (baked-bank) golden directly.
         ref = np.asarray(Image.open(ASSETS / f"golden_{name}.png"))
     else:
         # alpha_modes: the radial alpha ramp turns ULP differences between
-        # the MXU transform intersector (golden) and classic MT (C++) into
+        # the transform intersector (golden) and classic MT (C++) into
         # stochastic-alpha flips — compare against the same-formula jax
         # grid path instead.
         cfg = Config(num_samples=4, max_bounce=3, seed=12345, backend="grid")

@@ -1,7 +1,7 @@
 """Ports of the reference's math unit tests, plus batched-shape checks.
 
 Each test cites the reference test it mirrors (src/linalg.zig).  These are
-the conformance spec for the TPU math layer: exact values, same tolerances.
+the conformance spec for the batched math layer: exact values, same tolerances.
 """
 
 import jax.numpy as jnp

@@ -104,7 +104,7 @@ def test_previous_hit_exclusion(box, box_mxu):
     The reference's ``t + floatEps`` nudge (src/stage3.zig:209,216) is a
     rounding no-op at t >= 2, so without exclusion a re-trace from the hit
     point re-hits the SAME triangle at t ~ 0 purely by backend rounding
-    (EXCLUDE_PREV_HIT docstring, ops/mxu_intersect.py).  Both backends:
+    (EXCLUDE_PREV_HIT comment, ops/mxu_intersect.py).  Both backends:
     re-trace with exclude=<hit tri> must (a) never return the same
     triangle, (b) never return a t ~ 0 phantom."""
     from zig_raytracing_contest_tpu.render.wavefront import (
@@ -147,7 +147,7 @@ def test_mxu_render_close_to_grid_render(box, box_mxu):
 
 
 def test_inactive_rays_report_miss(box, box_mxu):
-    """Both backends honor the miss-on-inactive contract (ADVICE.md r1)."""
+    """Both backends honor the miss-on-inactive contract."""
     from zig_raytracing_contest_tpu.ops.mxu_intersect import nearest_hit_mxu
 
     *_, scene = box
@@ -283,7 +283,7 @@ def test_cli_end_to_end(tmp_path, monkeypatch):
 
 def test_progressive_dump(tmp_path, box):
     """progressive_every writes intermediate PNGs during the render
-    (the reference has no progressive mode; TPU-native extension)."""
+    (the reference has no progressive mode; an extension here)."""
     _, gltf, _, _, _, scene = box
     # Need several waves: wave quantum is spp*1024, so use a larger camera.
     cam = load_camera(gltf, width=48, height=48)
@@ -299,9 +299,8 @@ def test_progressive_dump(tmp_path, box):
 
 
 def test_odd_spp_small_image_waves(box):
-    """Wave quantization must satisfy every kernel's block constraint even
-    for odd spp × small images (regression: spp*256 quanta broke the
-    512-lane trace kernel's alignment on TPU)."""
+    """Wave quantization must satisfy the trace kernel's block constraint
+    even for odd spp × small images."""
     _, _, cam, _, _, scene = box
     img, stats = render_scene(scene, cam, Config(num_samples=3, max_bounce=2))
     assert img.shape == (H, W, 3)
@@ -328,8 +327,8 @@ def test_huge_ray_count_rejected(box):
 
 def test_wave_pixel_coords_exact_at_8k_bases():
     """pixel/x/y must be exact for pixel bases past f32's 2^24 integer
-    range — 8K images and far device tiles (ADVICE.md r1 medium finding:
-    deriving the base from g_start via f32 divmod rounded it)."""
+    range — 8K images and far device tiles (deriving the base from g_start
+    via f32 divmod rounded it)."""
     from zig_raytracing_contest_tpu.render.wavefront import wave_pixel_coords
 
     width, spp = 7680, 3
@@ -362,76 +361,3 @@ def test_above_2p23_pixel_render_smoke(box, box_mxu):
     assert stats.segments == w * h  # every primary ray traced once
     # Content sanity: the image is not a constant field.
     assert img.std() > 0
-
-
-def test_corridor_sort_key_properties(box):
-    """The wave sort key (corridor variant, SORT_KEY_EXIT): live keys stay
-    below the dead bit, dead lanes take the top bit, rays sharing origin
-    AND scene-exit endpoint share a key, and the zero-direction-component
-    slab edge case (0 * inf) produces a finite key, not NaN propagation."""
-    import numpy as np
-
-    from zig_raytracing_contest_tpu.render import wavefront as wf
-
-    scene = box[5]
-    R = 8
-    state = np.zeros((16, R), np.float32)
-    bmin = np.asarray(scene.grid.bbox_min)
-    bmax = np.asarray(scene.grid.bbox_max)
-    state[0:3] = ((bmin + bmax) / 2)[:, None]
-    dirs = np.array(
-        [[1, 0, 0], [0, 1, 0], [0, 0, 1], [-1, 0, 0],
-         [0.577, 0.577, 0.577], [0.577, 0.577, 0.577], [0, -1, 0],
-         [0, 0, -1]], np.float32,
-    ).T
-    state[3:6] = dirs
-    state[12] = 1.0
-    key = np.asarray(wf._ray_sort_key(scene, jnp.asarray(state)))
-    assert np.all(key[:] < (1 << 30))  # alive below the dead bit
-    assert key[4] == key[5]  # identical corridor -> identical key
-    state[12, 3] = 0.0  # kill one lane
-    key2 = np.asarray(wf._ray_sort_key(scene, jnp.asarray(state)))
-    assert key2[3] >> 30 == 1
-    assert np.all(key2[[0, 1, 2, 4, 5, 6, 7]] == key[[0, 1, 2, 4, 5, 6, 7]])
-    # origin on a bbox face with a zero direction component along it
-    state[0, 0] = bmin[0]
-    state[3:6, 0] = [0.0, 1.0, 0.0]
-    key3 = np.asarray(wf._ray_sort_key(scene, jnp.asarray(state)))
-    assert 0 <= key3[0] < (1 << 30)
-
-
-def test_payload_sort_matches_gather_composition():
-    """_sort_state_payload/_unsort_rows are bit-identical to the stable
-    argsort + take-by-perm + take-by-inverse-perm composition they
-    replaced (5.1x cheaper on chip; scripts/micro_sort.py).  Duplicate
-    keys exercise the tie-break: the (key, iota) num_keys=2 composite
-    must reproduce stable-argsort order exactly."""
-    import numpy as np
-
-    from zig_raytracing_contest_tpu.render import wavefront as wf
-
-    rng = np.random.default_rng(7)
-    R = 1 << 10
-    state = jnp.asarray(rng.standard_normal((16, R)), jnp.float32)
-    # few distinct keys -> many ties
-    key = jnp.asarray(rng.integers(0, 17, R), jnp.int32)
-    extra = jnp.asarray(rng.integers(0, 1 << 20, R), jnp.int32)
-
-    perm_ref = jnp.argsort(key)  # stable
-    sorted_ref = jnp.take(state, perm_ref, axis=1)
-    extra_ref = jnp.take(extra, perm_ref)
-
-    perm, sorted_state, extras = wf._sort_state_payload(key, state, (extra,))
-    assert np.array_equal(np.asarray(perm), np.asarray(perm_ref))
-    assert np.array_equal(np.asarray(sorted_state), np.asarray(sorted_ref))
-    assert np.array_equal(np.asarray(extras[0]), np.asarray(extra_ref))
-
-    inv = jnp.zeros((R,), jnp.int32).at[perm_ref].set(
-        jnp.arange(R, dtype=jnp.int32)
-    )
-    rows = sorted_state[0:4]
-    unsort_ref = jnp.take(rows, inv, axis=1)
-    unsorted = wf._unsort_rows(perm, rows)
-    assert np.array_equal(np.asarray(unsorted), np.asarray(unsort_ref))
-    # and the round trip really is the identity
-    assert np.array_equal(np.asarray(unsorted), np.asarray(state[0:4]))

@@ -85,13 +85,3 @@ def test_normal3_moments():
     c = np.corrcoef(g.T)
     off = c[~np.eye(3, dtype=bool)]
     assert np.all(np.abs(off) < 0.01)
-
-
-def test_fused_kernel_uses_the_same_hash():
-    """render/fused.py must not re-grow a private hash copy: its kernel-side
-    names are the ops/rng functions themselves (r1 held them equal only
-    indirectly through the fused-vs-XLA image test)."""
-    from zig_raytracing_contest_tpu.render import fused
-
-    assert fused._bits is rng._bits
-    assert fused._u01 is rng._u01

@@ -3,8 +3,8 @@
 Reference CLI (src/main.zig:33-39): ``--in`` (default input.gltf), ``--out``
 (default output.png), ``--camera`` (name), ``--width``, ``--height``.
 Extras: ``--config`` (path to config.json, default ./config.json like the
-reference's install-side file) and ``--devices`` (TPU mesh size for
-multi-chip pixel-tile sharding; default: all visible devices when >1).
+reference's install-side file) and ``--devices`` (device mesh size for
+multi-device pixel-tile sharding; default: one device).
 
 Run: ``python -m zig_raytracing_contest_tpu --in scene.gltf --out out.png``.
 """
@@ -19,7 +19,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="zig_raytracing_contest_tpu",
-        description="TPU-native glTF path tracer",
+        description="glTF path tracer on JAX (GPU or CPU)",
     )
     p.add_argument("--in", dest="in_path", default="input.gltf")
     p.add_argument("--out", dest="out_path", default="output.png")

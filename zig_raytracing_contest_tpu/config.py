@@ -5,9 +5,10 @@ from ``config.json`` — exactly the reference's keys ``grid_resolution``
 (3-array), ``num_threads`` (nullable; host decode pool size here),
 ``num_samples``, ``max_bounce`` (src/main.zig:56-71, config.json:1-6) — and
 per-run I/O via CLI flags ``--in/--out/--camera/--width/--height``
-(src/main.zig:33-39).  TPU-only extras (wave_size, seed, progressive) are
-optional keys the reference never had; unknown keys are rejected like Zig's
-std.json default (src/main.zig:65) except the documented extras.
+(src/main.zig:33-39).  Extras (wave_size, seed, progressive, backend, the
+rendering extensions, debug_checks) are optional keys the reference never
+had; unknown keys are rejected like Zig's std.json default
+(src/main.zig:65) except the documented extras.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ class Config:
     grid_resolution: tuple[int, int, int] = (128, 128, 128)
     # DOCUMENTED DIVERGENCE: in the reference ``num_threads`` sizes the
     # RENDER thread pool (src/main.zig:90, threads render pixel blocks,
-    # src/stage3.zig:247-256).  Here the render runs on the TPU — there is
+    # src/stage3.zig:247-256).  Here the render runs on the device — there is
     # no render thread pool to size — so the knob keeps its only remaining
     # host-side meaning: the load-time image-decode pool
     # (src/stage1.zig:98-107; scene/gltf.py).  ``null`` still means
@@ -36,18 +37,18 @@ class Config:
     num_threads: int | None = None
     num_samples: int = 3
     max_bounce: int = 4
-    # TPU-native extras:
+    # Extras the reference does not have:
     wave_size: int = 1 << 20  # rays in flight per jitted wave
     seed: int = 0
     progressive_every: int = 0  # waves between intermediate PNG dumps (0=off)
-    backend: str = "auto"  # intersection backend: auto | mxu | grid
+    backend: str = "auto"  # intersection: auto | mxu (baked bank) | grid
     # Extensions (render/extensions.py) — OFF by default: the reference has
     # none of these; enabling any changes the estimator (still converging to
     # the same image for nee/russian_roulette; pbr changes materials).
     nee: bool = False
     russian_roulette: bool = False
     pbr: bool = False
-    # Debug mode (the TPU analogue of the reference's Debug/ReleaseSafe
+    # Debug mode (the analogue of the reference's Debug/ReleaseSafe
     # builds, build.zig:16, per SURVEY §5): enables jax_debug_nans for the
     # render and a non-finite radiance check on the framebuffer before PNG
     # encode (a NaN would otherwise clamp silently at gamma encode).
@@ -103,4 +104,4 @@ class CmdlineArgs:
     width: int | None = None
     height: int | None = None
     config: str = "config.json"
-    devices: str | None = field(default=None)  # TPU extra: mesh spec, e.g. "4"
+    devices: str | None = field(default=None)  # extra: mesh size, e.g. "4"

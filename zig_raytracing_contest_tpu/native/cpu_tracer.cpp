@@ -1,19 +1,19 @@
 // Native CPU path tracer: the reference-equivalent baseline renderer.
 //
-// Purpose (BASELINE.md / VERDICT.md r1 #5): the reference publishes no
-// numbers and its Zig toolchain is not in this image, so the "10x the CPU
-// build" target needs a measured denominator.  This is a faithful C++
+// Purpose (BASELINE.md): the reference publishes no numbers and its Zig
+// toolchain is not available here, so the "10x the CPU build" target needs
+// a measured denominator.  This is a faithful C++
 // re-implementation of the reference's render stage — fork-join threads
 // over contiguous pixel blocks (src/stage3.zig:222-256), per-ray grid DDA
 // (src/linalg.zig:443-498), Moller-Trumbore with back-face culling
 // (src/linalg.zig:696-722), bilinear textures with the frac-of-raw-uv quirk
 // (src/stage3.zig:82-123), stochastic alpha and diffuse scatter
 // (src/stage3.zig:188-220) — driven by the same baked scene arrays as the
-// TPU path.
+// device path.
 //
 // It uses OUR counter-hash RNG (ops/rng.py) instead of the reference's
 // per-thread sequential PRNG, so its output is directly comparable to the
-// TPU renderer (tests/test_native_tracer.py pins the images near-equal);
+// device renderer (tests/test_native_tracer.py pins the images near-equal);
 // the reference's own output depends on thread count and is irreproducible
 // by design (src/stage3.zig:225).
 //
@@ -155,7 +155,7 @@ constexpr int kAxisMap[8] = {2, 1, 2, 1, 2, 2, 0, 0};
 // continuation ray may never re-hit — a same-triangle re-hit from a point
 // on the triangle's own plane is always a rounding phantom (the
 // reference's t + floatEps nudge is a no-op at t >= 2); excluding it
-// keeps this baseline deterministic and consistent with the TPU paths
+// keeps this baseline deterministic and consistent with the device paths
 // (ops/mxu_intersect.py EXCLUDE_PREV_HIT).
 inline bool trace(const Scene& s, V3 o, V3 d, Hit* hit,
                   int32_t exclude = -1) {

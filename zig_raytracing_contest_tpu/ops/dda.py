@@ -1,12 +1,11 @@
 """Vectorized 3D-DDA (Amanatides–Woo) uniform-grid traversal.
 
-TPU-native re-design of the reference grid iterator (src/linalg.zig:407-498).
+Batched re-design of the reference grid iterator (src/linalg.zig:407-498).
 The reference walks one ray at a time with a stateful ``Iterator``; here the
 iterator state lives in a struct-of-arrays over a whole ray wave, and
-``dda_next`` advances every ray one cell in lock-step on the VPU.  The
+``dda_next`` advances every ray one cell in lock-step.  The
 reference's u32-wraparound step encoding (src/linalg.zig:451,492) is
-re-expressed with signed int32 steps, which is both TPU-friendlier and
-well-defined; the exit test fires *before* the step so the wraparound is never
+re-expressed with signed int32 steps, which are well-defined; the exit test fires *before* the step so the wraparound is never
 semantically observable.
 
 The axis tie-break is parity-critical: the reference picks the stepping axis

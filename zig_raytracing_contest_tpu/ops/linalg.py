@@ -1,8 +1,8 @@
-"""Batched vector/geometry math for the TPU wavefront renderer.
+"""Batched vector/geometry math for the wavefront renderer.
 
-TPU-native re-design of the reference math layer (reference: src/linalg.zig).
+Batched re-design of the reference math layer (reference: src/linalg.zig).
 Everything here is written over *batched* arrays of shape ``(..., 3)`` so a
-single call processes a whole ray wave on the VPU — the reference operates on
+single call processes a whole ray wave — the reference operates on
 one 3-lane SIMD vector at a time (src/linalg.zig:13-222); we operate on
 ``(R, 3)`` blocks instead, which is the shape XLA tiles onto (8, 128) vregs.
 

@@ -1,9 +1,4 @@
-"""Dense TPU nearest-hit: triangle intersection without gathers.
-
-The grid/gather wavefront (render/wavefront.py) is semantically faithful but
-HBM-gather-bound on TPU (~0.1 Mrays/s measured): TPUs have no SIMD gather
-unit, so per-ray random access to triangle data serializes.  The TPU-native
-answer is to remove gathers entirely and feed the VPU/MXU dense tiles.
+"""Brute-force nearest hit over a baked triangle bank.
 
 Every triangle (v0, e1, e2) is baked on the host into its *world→barycentric*
 affine transform: M = [e1 e2 n]⁻¹ (n = e1 × e2) and c = -M·v0.  For a ray
@@ -16,34 +11,28 @@ which equals Möller–Trumbore exactly in real arithmetic (d'_w = dot(d, n)/|n|
 and MT's det = -dot(d, n), so the reference's back-face cull ``det < 1e-8``
 (src/linalg.zig:705) becomes ``-d'_w · |n|² < 1e-8`` with |n|² baked per
 triangle).  A block of rays against a tile of triangles is then pure
-broadcasted FMA on (Rb, Kt) tiles — dense, exact f32, no memory randomness.
+broadcasted FMA on (rays, tile) blocks — exact f32, no per-ray memory
+randomness.
+
+Triangles are ordered by a top-down BVH split at bake time, so each tile
+of ``tile`` consecutive triangles, and each group of ``group_tiles`` tiles,
+is spatially compact; their AABBs let a traversal skip whole tiles.
 
 Two implementations over one baked format:
 
-* ``nearest_hit_xla`` — lax.scan over tiles; correct everywhere (CPU tests,
-  shard_map), but materializes (R, Kt) intermediates to HBM.  This is the
-  non-TPU backend and the semantic oracle.
-* ``trace_emit_aux`` — the production TPU kernel (field-major: triangles on
-  sublanes, rays on lanes): the ray state lives in one (16, R) tensor, the
-  triangle bank (13, Tp) lives in VMEM (or streams from HBM for big
-  scenes), the running nearest state lives in output refs, and (Kt, Rb)
-  intermediates never leave the chip.  Triangles are Morton-sorted at bake
-  time so each Kt-tile is spatially compact, and a per-tile AABB slab test
-  against the ray block (with distance culling vs. the running best) lets
-  ``pl.when`` skip whole tiles.  (An earlier ray-major variant was removed
-  in round 2: the fused pipeline made it unreachable.)
+* ``nearest_hit_xla`` — a ``lax.scan`` over every tile, no culling.  The
+  CPU backend's trace and the reference the kernel is tested against.
+* ``ops/trace_kernel.nearest_hit_triton`` — the GPU kernel: one program per
+  block of rays, a loop over groups and tiles that skips boxes no ray of
+  the block can hit nearer than its running best.
 
-Brute force over (culled) triangle tiles trades FLOPs, which TPUs have in
-abundance, for memory randomness, which they punish.  Visibility equals the
-grid path by construction: same hit rule, same nearest-positive-t.
-
-Host baking uses float64 inverses for stability, cast to f32.
+Visibility equals the grid path by construction: same hit rule, same
+nearest positive t.  Host baking uses float64 inverses, cast to f32.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -52,79 +41,60 @@ import numpy as np
 MT_EPSILON = 1e-8
 INF = jnp.inf
 
-# Transform-application matmul precision (see _tile_update.apply): Mosaic's
-# DEFAULT is single-pass bf16 — measured 1.3e-3 median t error and 2.2%
-# wrong winners on-chip, unacceptable.  Tunable here for measurement.
-_TRANSFORM_PRECISION = jax.lax.Precision.HIGHEST
-# "mxu" (dot_general at _TRANSFORM_PRECISION) or "vpu" (exact elementwise).
-_TRANSFORM_MODE = "vpu"
-
-# Triangles per inner tile / bbox granularity.  128 is the Mosaic lane
-# minimum (the bank's triangle axis rides vreg lanes); finer tiles give the
-# per-block culls tighter boxes.  Measured on the official 1080p bench:
-# 128 → 22.3 Mrays/s vs 256 → 19.1 (bulk VPU cost is ~tile-size-neutral,
-# cull rejection is not).  Large/streaming scenes keep 256 (128 measured
-# worse there: per-tile overhead beats the finer culling, docs/PERFORMANCE).
-TRI_TILE = 256
-TRI_TILE_SMALL = 128  # rec-emit-resident scenes (scene/types.py picks)
+# Triangles per tile: the unit of the kernel's box cull and of the XLA
+# scan step.  A power of two (the kernel's loads are); chosen on an H100
+# with the kernel's block sizes (PERF.md).
+TRI_TILE = 32
+GROUP_TILES = 8  # tiles per second-level cull group
 
 # tri_data row layout: 9 rows of M (row-major), 3 rows of c, 1 row of |n|²,
-# padded to 16 rows so DMA slices are sublane-aligned (multiples of 8).
+# padded to 16 rows.
 _ROWS = 13
 _BANK_ROWS = 16
 
-
-GROUP_TILES = 8  # tiles per second-level cull group (bbox in SMEM)
+# Deterministic previous-hit exclusion.  The reference's continuation rays
+# re-originate at ray.at(t + floatEps(f32)) (src/stage3.zig:209,216) — an
+# ABSOLUTE 1.19e-7 nudge that is a rounding no-op once t >= 2 (ULP(2) =
+# 2.4e-7), so whether the new trace phantom-re-hits the SAME triangle at
+# t ~ 0 is decided by rounding luck, which differs between backends and
+# compilers.  Each phantom re-hit burns a bounce and an RNG draw, fully
+# decorrelating two builds in alpha-tested regions.  A same-triangle re-hit
+# from a point on the triangle's own plane is ALWAYS phantom: with
+# front-face culling (det >= eps) a second legitimate front-face crossing
+# of the same plane cannot exist.  So every trace path excludes the ray's
+# previous hit triangle, which makes renders deterministic across backends.
+EXCLUDE_PREV_HIT = True
 
 
 @jax.tree_util.register_pytree_node_class
 @dataclass(frozen=True)
 class MXUTriangles:
-    """Baked, Morton-sorted triangle bank (padded to a ``tile`` multiple).
+    """Baked, BVH-ordered triangle bank (padded to whole groups).
 
-    tri_data:  (13, Tp) f32 — transforms in Morton order, padded to whole
-               group quanta (DMA slices stay in-bounds); padding has
-               |n|² = 0 which the det test culls unconditionally.
-    tile_bbox: (6, ceil(T / tile)) f32 — [minx..z, maxx..z] per REAL
-               tile only.  The kernels take their loop bounds from this
-               shape, so fully-padded tiles are never visited (an inverted
-               empty-tile box PASSES the slab test — sweeping them cost 60%
-               extra tile work on small scenes before r2 sized this to real
-               tiles).
-    perm:      (Tp,) int32 — Morton position → original unique triangle id.
-    group_bbox: (6, ceil(real_tiles / group_tiles)) f32 — second-level
-               AABBs over ``group_tiles`` consecutive real tiles; a culled
-               group skips its tiles' slab tests AND (in the streaming
-               kernel) their DMAs.
-    tree_bbox: (6, 2·P2) f32, P2 = next_pow2(real_tiles) — implicit binary
-               heap over the Morton-ordered tiles (node i's children are
-               2i and 2i+1; leaves are nodes [P2, P2+real_tiles)).  Nodes
-               covering no real tile store the always-miss box
-               [min=max=+inf], which the slab test provably rejects for
-               every ray.  Node 0 is unused.  The resident trace kernels
-               traverse this heap depth-first (near child first) instead
-               of sweeping the flat tile list once there are enough tiles.
-    group_tree_bbox: the same heap construction over the GROUP boxes — the
-               HBM-streaming kernel traverses this one (its unit of work
-               and DMA gating is the group; a tile-level tree for a
-               multi-million-triangle scene would not fit SMEM).
+    tri_data:  (16, Tp) f32 — transforms in bank order, padded to whole
+               group quanta; padding has |n|² = 0, which the det test
+               culls unconditionally.
+    tile_bbox: (6, num_groups · group_tiles) f32 — [minx..z, maxx..z] per
+               tile.  Tiles holding no triangle store the always-miss box
+               [min = max = +inf], which the slab test rejects for every
+               finite ray.
+    perm:      (Tp,) int32 — bank position → original unique triangle id.
+    group_bbox: (6, num_groups) f32 — boxes over ``group_tiles``
+               consecutive tiles.
     tile / group_tiles: STATIC bake geometry (pytree aux data, so the jit
-               cache keys on them and kernels unroll with the right sizes).
+               cache keys on them).
     """
 
     tri_data: jnp.ndarray
     tile_bbox: jnp.ndarray
     perm: jnp.ndarray
     group_bbox: jnp.ndarray
-    tree_bbox: jnp.ndarray
-    group_tree_bbox: jnp.ndarray
     tile: int = TRI_TILE
     group_tiles: int = GROUP_TILES
 
     def tree_flatten(self):
         return (
-            (self.tri_data, self.tile_bbox, self.perm, self.group_bbox,
-             self.tree_bbox, self.group_tree_bbox),
+            (self.tri_data, self.tile_bbox, self.perm, self.group_bbox),
             (self.tile, self.group_tiles),
         )
 
@@ -136,17 +106,12 @@ class MXUTriangles:
 def _bvh_order(centroid: np.ndarray, tile: int) -> np.ndarray:
     """BVH-quality triangle order: recursive capacity-aligned spatial splits.
 
-    Raw Morton order (round 2) gave each ``tile``-sized chunk a sloppy
-    box — Morton ranges straddle cell boundaries, and the implicit heap's
-    upper nodes union ranges no split plane ever separated.  This order
-    builds a real top-down BVH whose node boundaries COINCIDE with the
-    implicit heap's aligned leaf ranges: each subtree of leaf capacity P
-    splits its triangles along the widest centroid axis, sending
-    ``min(n, P/2·tile)`` to the left child — so every heap node covers a
-    set that an actual axis partition produced (disjoint along the split
-    axis), and real tiles stay a contiguous prefix (left-complete tree,
-    full tiles except the last).  The kernels are unchanged: same
-    tile/heap shapes, tighter boxes at every level.
+    A top-down BVH whose node boundaries coincide with aligned power-of-two
+    ranges of tiles: each subtree of leaf capacity P splits its triangles
+    along the widest centroid axis, sending ``min(n, P/2·tile)`` to the
+    left child.  Every tile and every aligned group of tiles therefore
+    covers a set that an actual axis partition produced, and real tiles
+    stay a contiguous prefix (full tiles except the last).
     """
     T = centroid.shape[0]
     num_tiles = -(-max(T, 1) // tile)
@@ -176,29 +141,6 @@ def _bvh_order(centroid: np.ndarray, tile: int) -> np.ndarray:
     return out
 
 
-def _build_heap(leaf_bbox: np.ndarray) -> np.ndarray:
-    """(6, N) leaf boxes → (6, 2·P2) implicit binary heap (P2 = next pow2).
-
-    Empty subtrees (and padded leaves) store the always-miss box
-    [min=max=+inf]: every slab test yields tmin=+inf (miss via tmin>=best,
-    even at best=inf) or tmax=-inf (miss via tmax<=0) for any finite ray.
-    """
-    n = leaf_bbox.shape[1]
-    p2 = 1
-    while p2 < n:
-        p2 *= 2
-    tree = np.zeros((6, 2 * p2), np.float32)
-    tree[0:3, :] = np.float32(np.inf)
-    tree[3:6, :] = -np.float32(np.inf)
-    tree[:, p2 : p2 + n] = leaf_bbox
-    for i in range(p2 - 1, 0, -1):
-        tree[0:3, i] = np.minimum(tree[0:3, 2 * i], tree[0:3, 2 * i + 1])
-        tree[3:6, i] = np.maximum(tree[3:6, 2 * i], tree[3:6, 2 * i + 1])
-    em = (tree[3:6] < tree[0:3]).any(axis=0)
-    tree[:, em] = np.float32(np.inf)
-    return tree
-
-
 def bake_triangles(
     v0: np.ndarray,
     e1: np.ndarray,
@@ -206,19 +148,14 @@ def bake_triangles(
     tile: int = TRI_TILE,
     group_tiles: int = GROUP_TILES,
 ) -> MXUTriangles:
-    """Host-side bake: MT arrays → Morton-sorted transform bank + tile boxes.
-
-    ``tile`` must be a multiple of 128 (the bank's triangle axis rides
-    Mosaic vreg lanes; unaligned tile slices cannot lower)."""
-    assert tile % 128 == 0, f"tile {tile} must be lane-aligned (128)"
+    """Host-side bake: MT arrays → BVH-ordered transform bank + boxes."""
+    if tile <= 0 or tile & (tile - 1):
+        raise ValueError(f"tile {tile} must be a power of two")
     v0 = np.asarray(v0, np.float64)
     e1 = np.asarray(e1, np.float64)
     e2 = np.asarray(e2, np.float64)
     T = v0.shape[0]
 
-    # BVH order by centroid: recursive capacity-aligned spatial splits so
-    # tiles AND every implicit-heap node get tight, split-plane-aligned
-    # boxes (see _bvh_order; replaced the r2 raw Morton sort).
     centroid = v0 + (e1 + e2) / 3.0
     order = _bvh_order(centroid, tile)
     v0, e1, e2 = v0[order], e1[order], e2[order]
@@ -234,41 +171,31 @@ def bake_triangles(
     M = np.stack([r_u, r_v, r_w], axis=1)  # (T, 3, 3)
     c = -np.einsum("tak,tk->ta", M, v0)  # (T, 3)
 
-    quantum = tile * group_tiles  # whole cull groups (see MXUTriangles)
+    quantum = tile * group_tiles
     Tp = -(-max(T, 1) // quantum) * quantum
     tri_data = np.zeros((_BANK_ROWS, Tp), np.float32)
     tri_data[0:9, :T] = M.reshape(T, 9).T.astype(np.float32)
     tri_data[9:12, :T] = c.T.astype(np.float32)
     tri_data[12, :T] = n_sq.astype(np.float32)
 
-    # Per-REAL-tile AABBs over the three vertices of each member triangle
-    # (kernel loop bounds come from this shape; padded tiles never visited).
+    # Per-tile AABBs over the three vertices of each member triangle;
+    # tiles without triangles keep the always-miss box.
     verts = np.stack([v0, v0 + e1, v0 + e2], axis=1)  # (T, 3, 3)
-    num_tiles = -(-max(T, 1) // tile)
-    tile_bbox = np.zeros((6, num_tiles), np.float32)
-    tile_bbox[0:3] = np.float32(np.inf)
-    tile_bbox[3:6] = -np.float32(np.inf)
-    for ti in range(num_tiles):
-        chunk = verts[ti * tile : min((ti + 1) * tile, T)]
-        if len(chunk):
-            flat = chunk.reshape(-1, 3)
-            tile_bbox[0:3, ti] = flat.min(axis=0)
-            tile_bbox[3:6, ti] = flat.max(axis=0)
+    num_tiles = Tp // tile
+    num_groups = num_tiles // group_tiles
+    tile_bbox = np.full((6, num_tiles), np.inf, np.float32)
+    for ti in range(-(-T // tile)):
+        flat = verts[ti * tile : min((ti + 1) * tile, T)].reshape(-1, 3)
+        tile_bbox[0:3, ti] = flat.min(axis=0)
+        tile_bbox[3:6, ti] = flat.max(axis=0)
 
-    num_groups = -(-num_tiles // group_tiles)
-    group_bbox = np.zeros((6, num_groups), np.float32)
-    g_pad = np.full((6, num_groups * group_tiles), np.nan, np.float32)
-    g_pad[0:3] = np.float32(np.inf)
-    g_pad[3:6] = -np.float32(np.inf)
-    g_pad[:, :num_tiles] = tile_bbox
-    g_tiles = g_pad.reshape(6, num_groups, group_tiles)
-    group_bbox[0:3] = g_tiles[0:3].min(axis=2)
-    group_bbox[3:6] = g_tiles[3:6].max(axis=2)
-
-    # Implicit Morton-heap trees over the tiles and over the groups (see
-    # MXUTriangles.tree_bbox / group_tree_bbox).
-    tree = _build_heap(tile_bbox)
-    group_tree = _build_heap(group_bbox)
+    g = tile_bbox.reshape(6, num_groups, group_tiles)
+    empty = np.isinf(g[0])  # (num_groups, group_tiles)
+    group_bbox = np.full((6, num_groups), np.inf, np.float32)
+    with np.errstate(invalid="ignore"):
+        group_bbox[0:3] = np.where(empty, np.inf, g[0:3]).min(axis=2)
+        group_bbox[3:6] = np.where(empty, -np.inf, g[3:6]).max(axis=2)
+    group_bbox[:, empty.all(axis=1)] = np.inf
 
     perm = np.zeros(Tp, np.int32)
     perm[:T] = order.astype(np.int32)
@@ -277,8 +204,6 @@ def bake_triangles(
         tile_bbox=jnp.asarray(tile_bbox),
         perm=jnp.asarray(perm),
         group_bbox=jnp.asarray(group_bbox),
-        tree_bbox=jnp.asarray(tree),
-        group_tree_bbox=jnp.asarray(group_tree),
         tile=tile,
         group_tiles=group_tiles,
     )
@@ -287,8 +212,7 @@ def bake_triangles(
 def _intersect_tile(ox, oy, oz, dx, dy, dz, rows):
     """Core math for one (rays × tile) block.  Inputs are (Rb, 1) ray
     component columns and (13, Kt) transform rows; returns (t, u, v, ok)
-    as (Rb, Kt) tiles.  Shared verbatim by the XLA scan, the Pallas kernel,
-    and the per-ray winner recompute (exactness by construction)."""
+    as (Rb, Kt) tiles.  Shared by the XLA scan and the GPU kernel."""
     m = lambda r: rows[r][None, :]
     ou = ox * m(0) + oy * m(1) + oz * m(2) + m(9)
     ov = ox * m(3) + oy * m(4) + oz * m(5) + m(10)
@@ -311,40 +235,16 @@ def _intersect_tile(ox, oy, oz, dx, dy, dz, rows):
     return t, u, v, ok
 
 
-def recompute_uv(tris: MXUTriangles, state16, aux, idx):
-    """Fill aux rows 0/1 (u, v) from the winner index after a trace kernel
-    ran with ``extract_uv=False`` (EXTRACT_UV_IN_KERNEL off).
-
-    One (13, R) gather + a VPU FMA tail per BOUNCE, replacing two (Kt, LB)
-    masked reduces per SWEPT TILE inside the kernels — a net win whenever
-    rays sweep more than a couple of tiles each.  Uses the kernel's winning
-    t (aux row 2) and the same FMA order as ``_tile_update``'s VPU path, so
-    the barycentrics agree with the in-kernel extraction to f32 rounding;
-    misses (t == INF) keep the kernel contract u = v = 0."""
-    rows = tris.tri_data[:, idx]  # (13, R)
-    o0, o1, o2 = state16[0], state16[1], state16[2]
-    d0, d1, d2 = state16[3], state16[4], state16[5]
-    t = aux[2]
-    ou = rows[0] * o0 + rows[1] * o1 + rows[2] * o2 + rows[9]
-    ov = rows[3] * o0 + rows[4] * o1 + rows[5] * o2 + rows[10]
-    du = rows[0] * d0 + rows[1] * d1 + rows[2] * d2
-    dv = rows[3] * d0 + rows[4] * d1 + rows[5] * d2
-    hit = t < INF
-    u = jnp.where(hit, ou + t * du, 0.0)
-    v = jnp.where(hit, ov + t * dv, 0.0)
-    return jnp.concatenate([u[None], v[None], aux[2:]], axis=0)
-
-
-def nearest_hit_xla(tris: MXUTriangles, orig, direction, active, tile: int | None = None,
+def nearest_hit_xla(tris: MXUTriangles, orig, direction, active,
                     exclude=None):
-    """Portable tile scan (CPU tests / fallback).  Returns (t, idx_morton).
+    """Portable tile scan.  Returns (t, idx_bank, u, v).
 
     ``exclude``: optional (R,) int32 UNIQUE-space triangle index each ray
-    may not hit again (EXCLUDE_PREV_HIT — the previous hit; see the flag's
-    docstring).  Compared via the per-tile slice of ``tris.perm`` so the
-    semantics match the kernels' Morton-space compare exactly."""
-    if tile is None:
-        tile = tris.tile
+    may not hit again (EXCLUDE_PREV_HIT — the previous hit), compared via
+    the per-tile slice of ``tris.perm``.  Ties resolve to the lowest bank
+    index: the first minimum within a tile, and a later tile replaces the
+    running best only when strictly nearer."""
+    tile = tris.tile
     R = orig.shape[0]
     Tp = tris.tri_data.shape[1]
     num_tiles = Tp // tile
@@ -386,1323 +286,22 @@ def nearest_hit_xla(tris: MXUTriangles, orig, direction, active, tile: int | Non
     return best_t, best_i, best_u, best_v
 
 
-# Deferred import so CPU-only environments can import this module header.
-from jax.experimental import pallas as pl  # noqa: E402
-from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+def finish_hits(tris: MXUTriangles, active, t, idx_bank, u, v):
+    """Shared trace contract: (t, u, v, unique_tri_idx), a miss (t = inf,
+    u = v = 0, idx 0) for inactive rays and for rays that hit nothing."""
+    t = jnp.where(active, t, INF)
+    hit = jnp.isfinite(t)
+    u = jnp.where(hit, u, 0.0)
+    v = jnp.where(hit, v, 0.0)
+    idx = tris.perm[jnp.clip(idx_bank, 0, tris.perm.shape[0] - 1)]
+    return t, u, v, jnp.where(hit, idx, 0)
 
 
 def nearest_hit_mxu(tris: MXUTriangles, orig, direction, active,
                     exclude=None):
-    """Ray-major nearest hit over the XLA tile scan (non-fused fallback:
-    CPU tests, shard_map oracle).  On TPU the production path is the
-    field-major ``trace_emit_aux`` kernel driven by render/fused.py.
-    Returns (t, u, v, unique_tri_idx); inactive rays report t = inf.
-    ``exclude``: optional (R,) int32 unique-space previous-hit index
-    (see nearest_hit_xla)."""
-    t, idx_m, u, v = nearest_hit_xla(tris, orig, direction, active,
+    """Nearest hit through the XLA tile scan.  Returns (t, u, v,
+    unique_tri_idx); inactive rays report t = inf.  ``exclude``: optional
+    (R,) int32 unique-space previous-hit index (see nearest_hit_xla)."""
+    t, idx_b, u, v = nearest_hit_xla(tris, orig, direction, active,
                                      exclude=exclude)
-    t = jnp.where(active, t, INF)  # uniform miss-on-inactive contract
-    hit = jnp.isfinite(t)
-    u = jnp.where(hit, u, 0.0)
-    v = jnp.where(hit, v, 0.0)
-    idx = tris.perm[jnp.clip(idx_m, 0, tris.perm.shape[0] - 1)]
-    return t, u, v, jnp.where(hit, idx, 0)
-
-
-# ---------------------------------------------------------------------------
-# Field-major (lanes = rays) trace kernel for the fused pipeline.
-# ---------------------------------------------------------------------------
-# The block-per-256-rays kernel above outputs (R, 1) tensors whose Mosaic/XLA
-# layouts waste 128× their bandwidth and force per-bounce densification.
-# This variant swaps the tile orientation: triangles on sublanes, rays on
-# lanes.  Ray state arrives as rows of one (16, R) matrix and the kernel
-# emits the shading pipeline's aux matrix directly (render/fused.py), so a
-# bounce needs no XLA stacks, slices, or barriers around the kernel.
-#
-# state16 rows: 0-2 orig, 3-5 dir, 6-8 throughput, 9-11 radiance,
-#               12 alive (f32), 13 streams (u32 bitcast), 14 segments, 15 pad.
-
-LANE_BLOCK = 512  # rays per grid step (lanes), streaming kernel
-# VMEM-resident scenes use wider blocks: the ~8 µs per-grid-step overhead
-# dominated small-scene traces (profiled 47% of the frame); 1024 lanes
-# halves the step count while (Kt, 1024) intermediates still fit VMEM.
-LANE_BLOCK_RESIDENT = 1024
-# (The kernel tile size now comes from MXUTriangles.tile — static bake
-# geometry; no separate kernel-side constant to keep in sync.)
-
-# Above this padded triangle count the transform bank no longer fits VMEM
-# (16 MB/core: a 2^17-triangle bank is 8.4 MB, leaving ~5.5 MB for the
-# (Kt, 512) tile-update intermediates); the streaming kernel keeps it in
-# HBM and DMAs only the tiles that survive the group-level AABB cull.
-VMEM_RESIDENT_MAX_TRIS = 1 << 17
-# Banks above this share VMEM with the intermediates, so resident traces
-# drop to 512-lane blocks.
-VMEM_WIDE_BLOCK_MAX_TRIS = 1 << 16
-
-
-def _tile_update(rows, ox, oy, oz, dx, dy, dz, s, Tp, aux_ref, idx_ref,
-                 sl=slice(None), table_rows=None, rec_ref=None,
-                 extract_uv=True, origin=None, prev=None):
-    """Intersect one (13, Kt) transform tile against the lane rays and fold
-    the winners into the running-nearest refs.  Shared by the VMEM-resident
-    and HBM-streaming trace kernels.  ``sl`` restricts the update to a
-    static lane sub-range (sub-block predication).
-
-    ``origin``: optional 3-tuple of f32 SCALARS when every lane shares one
-    ray origin (bounce-0 primary rays from a pinhole camera).  The origin
-    transform (ou/ov/ow — 18 of the sweep's ~51 (Kt, LB) vector ops)
-    then collapses to (Kt, 1) columns computed once per tile and
-    broadcast, bit-identical to the per-lane path because every lane held
-    the same value (same f32 ops, same order).
-
-    The six transform applications run on the VPU by default
-    (``_TRANSFORM_MODE = "vpu"``: exact-f32 broadcasted FMA, the same op
-    sequence as the XLA oracle).  The MXU alternative — K=3
-    ``dot_general``s at ``_TRANSFORM_PRECISION`` — is kept as a measurable
-    A/B (flip ``_TRANSFORM_MODE``); the t/u/v/cull tail is VPU either way.
-
-    When ``table_rows``/``rec_ref`` are given, the winner's packed shade
-    record is extracted per improving tile with a one-hot MXU matmul over
-    the already-materialized ``sel`` mask.  The record-emitting resident
-    kernels no longer use this path — they defer extraction to ONE pass
-    over the winner tiles after traversal (``_extract_winner_records``),
-    which costs a few dots per block instead of one per swept tile; the
-    in-sweep variant is kept for A/B measurement."""
-    m = lambda r: rows[r][:, None]  # (Kt, 1) broadcast over lanes
-    o_mat = jnp.stack([ox[sl], oy[sl], oz[sl]], axis=0)  # (3, LB)
-    d_mat = jnp.stack([dx[sl], dy[sl], dz[sl]], axis=0)  # (3, LB)
-    dn = (((0,), (0,)), ((), ()))  # contract the 3-axis, no batch dims
-
-    def apply(row0, vec):
-        # Mosaic's DEFAULT in-kernel matmul is single-pass bf16, which
-        # would silently truncate the geometry to ~8 mantissa bits
-        # (discovered on-chip round 2: median 1.3e-3 t error, 2.2% wrong
-        # winners).  HIGHEST (multi-pass f32) keeps the intersection within
-        # f32 rounding of the elementwise path.
-        return jax.lax.dot_general(
-            rows[row0 : row0 + 3],  # (3, Kt)
-            vec,  # (3, LB)
-            dimension_numbers=dn,
-            preferred_element_type=jnp.float32,
-            precision=_TRANSFORM_PRECISION,
-        )  # (Kt, LB)
-
-    if _TRANSFORM_MODE == "vpu":
-        # Exact-f32 broadcasted FMA on the VPU (same op sequence as the
-        # XLA oracle's _intersect_tile, transposed).
-        if origin is not None:
-            o0, o1, o2 = origin  # f32 scalars; ou/ov/ow become (Kt, 1)
-        else:
-            o0, o1, o2 = ox[sl], oy[sl], oz[sl]
-        d0, d1, d2 = dx[sl], dy[sl], dz[sl]
-        ou = m(0) * o0 + m(1) * o1 + m(2) * o2 + m(9)
-        ov = m(3) * o0 + m(4) * o1 + m(5) * o2 + m(10)
-        ow = m(6) * o0 + m(7) * o1 + m(8) * o2 + m(11)
-        du = m(0) * d0 + m(1) * d1 + m(2) * d2
-        dv = m(3) * d0 + m(4) * d1 + m(5) * d2
-        dw = m(6) * d0 + m(7) * d1 + m(8) * d2
-    else:
-        ou = apply(0, o_mat) + m(9)
-        ov = apply(3, o_mat) + m(10)
-        ow = apply(6, o_mat) + m(11)
-        du = apply(0, d_mat)
-        dv = apply(3, d_mat)
-        dw = apply(6, d_mat)
-    t = -ow / dw
-    u = ou + t * du
-    v = ov + t * dv
-    det = -dw * m(12)
-    # (u <= 1 is implied: with v >= 0, any u > 1 makes u+v round to > 1.)
-    ok = (
-        (det >= MT_EPSILON)
-        & (u >= 0.0)
-        & (v >= 0.0)
-        & (u + v <= 1.0)
-        & (t > 0.0)
-    )
-    if prev is not None:
-        # EXCLUDE_PREV_HIT: a same-triangle re-hit from a point on the
-        # triangle's own plane is a rounding phantom (see the flag's
-        # docstring above); masking it is exact.  Cost per sweep: the
-        # (Kt, LB) iota is LOOP-INVARIANT (same shape every sweep — Mosaic
-        # hoists it out of the tile loop), and the tile offset rides the
-        # cheap (LB,) side as prev - s, so only the compare + and touch
-        # (Kt, LB) lanes.  Paid on continuation bounces only (prev is None
-        # for primaries).  The chip A/B (scripts/ab_flags.py, prev row)
-        # priced the whole exclusion at ~12% of the official frame before
-        # this hoist — part semantic (excluded rays live longer and trace
-        # real geometry behind the phantom), part this mask.
-        ids = jax.lax.broadcasted_iota(jnp.int32, t.shape, 0)
-        ok = ok & (ids != (prev[sl] - s)[None, :])
-    t = jnp.where(ok, t, INF)
-    tile_min = jnp.min(t, axis=0)  # (LB,)
-    best_t = aux_ref[2, sl]
-    better = tile_min < best_t
-    # Diagnostic: tiles actually swept by this lane's block (aux row 5 is
-    # otherwise unused; ~free — one vector add per executed tile update).
-    # scripts/cull_stats.py reads it to measure cull efficiency per bounce.
-    aux_ref[5, sl] = aux_ref[5, sl] + 1.0
-
-    def fold_winners():
-        ids = jax.lax.broadcasted_iota(jnp.int32, t.shape, 0)
-        cand = jnp.min(jnp.where(t <= tile_min[None, :], ids, Tp), axis=0)
-        aux_ref[2, sl] = jnp.where(better, tile_min, best_t)
-        if extract_uv or rec_ref is not None:
-            sel = ids == cand[None, :]
-        if extract_uv:
-            # Per-tile winner u/v extraction: two (Kt, LB) masked reduces
-            # per sweep.  Callers that recompute u/v once per bounce from
-            # the winner's transform rows (recompute_uv — bit-exact by
-            # shared op order) skip this; aux rows 0/1 then stay 0.
-            u_sel = jnp.sum(jnp.where(sel, u, 0.0), axis=0)
-            v_sel = jnp.sum(jnp.where(sel, v, 0.0), axis=0)
-            aux_ref[0, sl] = jnp.where(better, u_sel, aux_ref[0, sl])
-            aux_ref[1, sl] = jnp.where(better, v_sel, aux_ref[1, sl])
-        idx_ref[0, sl] = jnp.where(better, s + cand, idx_ref[0, sl])
-        if rec_ref is not None:
-            # (24, Kt) · one-hot (Kt, LB) on the MXU → the winner's record.
-            tile_rec = jax.lax.dot_general(
-                table_rows,
-                sel.astype(jnp.float32),
-                dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                # HIGHEST (3-term bf16 split) makes 1.0·x reconstruct all
-                # 24 mantissa bits — bit-exact one-hot extraction (verified
-                # on-chip, scripts/check_onehot_tpu.py).
-                precision=jax.lax.Precision.HIGHEST,
-            )  # (24, LB)
-            rec_ref[:, sl] = jnp.where(
-                better[None, :], tile_rec, rec_ref[:, sl]
-            )
-
-    if GATE_WINNER_EXTRACT:
-        # Winner folding (iota + candidate min-reduce + ref writes, ~10%
-        # of the sweep's vector ops) runs only when SOME lane improved —
-        # with front-to-back/tree traversal most later sweeps don't.  The
-        # non-improving case writes nothing, so skipping is exact.
-        @pl.when(jnp.any(better))
-        def _():
-            fold_winners()
-    else:
-        fold_winners()
-
-
-def _extract_winner_records(table_ref, aux_ref, idx_ref, rec_ref, tile: int,
-                            tri_ref=None, o=None, d=None,
-                            table_hbm: bool = False,
-                            tri_hbm: bool = False):
-    """Post-traversal winner-record extraction: one one-hot MXU dot per
-    tile that actually CONTAINS a winner, instead of one per swept tile.
-
-    The sweep already left the global winner id in ``idx_ref[0]`` and the
-    winning t in ``aux_ref[2]``; a lane block's winners cluster in a few
-    BVH-adjacent tiles (the block is a sorted beam), so walking the
-    distinct winner tiles replaces the ~10-100 in-sweep dots with ~1-4.
-    The dot itself is identical to the
-    in-sweep variant — (24, Kt) · one-hot (Kt, LB) at HIGHEST, bit-exact
-    reconstruction (scripts/check_onehot_tpu.py) — and the final value is
-    the same: the last improving tile IS the winner's tile.
-
-    When ``tri_ref``/``o``/``d`` are given, the winner's TRANSFORM rows
-    ride the same one-hot (a second dot per winner tile) and the winner's
-    u/v are recomputed into aux rows 0/1 after the walk — the in-kernel
-    twin of ``recompute_uv``: identical FMA order and identical winning t,
-    so the barycentrics are bit-exact vs the in-sweep extraction, while
-    the sweeps skip their two masked (Kt, LB) u/v reduces entirely.
-
-    Miss lanes (t = inf) select no column and keep the zero-initialized
-    record (and u = v = 0); all-miss blocks skip the loop entirely (no
-    tile < big).  The loop steps DISTINCT winner tiles (next = min tile id
-    above the current one, the same walk as fused._fetch_paged's page
-    loop), so iteration count equals the number of distinct winner tiles
-    — a stray lane far from the beam costs ONE extra iteration, not a
-    scan of the id range.
-
-    ``table_hbm``: the shade table lives in HBM (scenes past
-    REC_EMIT_MAX_TRIS, where a resident (24, Tp) table would not fit VMEM
-    beside the bank) and each winner tile's (24, tile) slice — ~12 KB —
-    is DMA'd into a VMEM scratch before its dot, overlapped with the
-    tri-row dot.  This is what lifts in-kernel record emission from 2^15
-    to every VMEM-resident scene: only 1-4 winner tiles per block move,
-    vs the per-bounce (24, R) XLA record gather they replace.
-
-    ``tri_hbm``: the transform bank ALSO lives in HBM (the streaming
-    regime, > VMEM_RESIDENT_MAX_TRIS); the winner tile's (16, tile) bank
-    slice is DMA'd the same way for the u/v dot, so even 500k-2M-triangle
-    scenes emit records and exact u/v in-kernel."""
-    assert tile & (tile - 1) == 0, "tile must be a power of two"
-    shift = tile.bit_length() - 1
-    lb = idx_ref.shape[1]
-    t_win = aux_ref[2, :]
-    hit = t_win < INF
-    win = idx_ref[0, :]
-    big = jnp.int32(1 << 30)
-    wt_hit = jnp.where(hit, jax.lax.shift_right_logical(win, shift), big)
-    do_uv = tri_ref is not None
-
-    def next_tile(last):
-        return jnp.min(jnp.where(wt_hit > last, wt_hit, big))
-
-    def cond(carry):
-        return carry[0] < big
-
-    def walk(tsc=None, tsem=None, rsc=None, rsem=None):
-        def body(carry):
-            jt, rows = carry
-            s = pl.multiple_of(jt * tile, tile)
-            if table_hbm:
-                cp = pltpu.make_async_copy(
-                    table_ref.at[:, pl.ds(s, tile)], tsc, tsem
-                )
-                cp.start()
-            if tri_hbm:
-                cpr = pltpu.make_async_copy(
-                    tri_ref.at[:, pl.ds(s, tile)], rsc, rsem
-                )
-                cpr.start()
-            col = jnp.where(wt_hit == jt, win - jt * tile, -1)
-            onehot = (
-                jax.lax.broadcasted_iota(jnp.int32, (tile, lb), 0)
-                == col[None, :]
-            ).astype(jnp.float32)
-            dn = (((1,), (0,)), ((), ()))
-            if do_uv:
-                # Tri-row dot first: for a VMEM bank it overlaps the table
-                # slice's copy; an HBM bank waits its own slice here.
-                if tri_hbm:
-                    cpr.wait()
-                    trows = rsc[:, :]
-                else:
-                    trows = tri_ref[:, pl.ds(s, tile)]
-                tile_rows = jax.lax.dot_general(
-                    trows,  # rows 0-5, 9, 10 used below
-                    onehot,
-                    dimension_numbers=dn,
-                    preferred_element_type=jnp.float32,
-                    precision=jax.lax.Precision.HIGHEST,
-                )  # (16, LB)
-                rows = jnp.where((wt_hit == jt)[None, :], tile_rows, rows)
-            if table_hbm:
-                cp.wait()
-                tbl = tsc[:, :]
-            else:
-                tbl = table_ref[:, pl.ds(s, tile)]
-            tile_rec = jax.lax.dot_general(
-                tbl,
-                onehot,
-                dimension_numbers=dn,
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )  # (24, LB)
-            rec_ref[:, :] = jnp.where(
-                (wt_hit == jt)[None, :], tile_rec, rec_ref[:, :]
-            )
-            return next_tile(jt), rows
-
-        rows0 = (
-            jnp.zeros((16, lb), jnp.float32) if do_uv
-            else jnp.zeros((1, lb), jnp.float32)
-        )
-        _, rows = jax.lax.while_loop(
-            cond, body, (next_tile(jnp.int32(-1)), rows0)
-        )
-        return rows
-
-    if table_hbm or tri_hbm:
-        scopes = {}
-        if table_hbm:
-            scopes["tsc"] = pltpu.VMEM(
-                (table_ref.shape[0], tile), jnp.float32
-            )
-            scopes["tsem"] = pltpu.SemaphoreType.DMA
-        if tri_hbm:
-            scopes["rsc"] = pltpu.VMEM((tri_ref.shape[0], tile), jnp.float32)
-            scopes["rsem"] = pltpu.SemaphoreType.DMA
-        rows = pl.run_scoped(walk, **scopes)
-    else:
-        rows = walk()
-    if do_uv:
-        # Same FMA order as _tile_update's VPU path / recompute_uv, with
-        # the winner's own t — bit-exact barycentrics.
-        ou = rows[0] * o[0] + rows[1] * o[1] + rows[2] * o[2] + rows[9]
-        ov = rows[3] * o[0] + rows[4] * o[1] + rows[5] * o[2] + rows[10]
-        du = rows[0] * d[0] + rows[1] * d[1] + rows[2] * d[2]
-        dv = rows[3] * d[0] + rows[4] * d[1] + rows[5] * d[2]
-        aux_ref[0, :] = jnp.where(hit, ou + t_win * du, 0.0)
-        aux_ref[1, :] = jnp.where(hit, ov + t_win * dv, 0.0)
-
-
-def _init_trace_refs(state_ref, aux_ref, idx_ref):
-    """Shared kernel prologue: ray fields, inverse dirs, output init."""
-    ox = state_ref[0, :]
-    oy = state_ref[1, :]
-    oz = state_ref[2, :]
-    dx = state_ref[3, :]
-    dy = state_ref[4, :]
-    dz = state_ref[5, :]
-    active = state_ref[12, :] > 0.0
-    inv = (1.0 / dx, 1.0 / dy, 1.0 / dz)
-
-    lb = state_ref.shape[1]
-    aux_ref[0, :] = jnp.zeros((lb,), jnp.float32)  # u
-    aux_ref[1, :] = jnp.zeros((lb,), jnp.float32)  # v
-    aux_ref[2, :] = jnp.full((lb,), INF, jnp.float32)  # t (running)
-    aux_ref[3, :] = state_ref[13, :]  # streams pass-through
-    aux_ref[4, :] = state_ref[12, :]  # alive pass-through
-    aux_ref[5, :] = jnp.zeros((lb,), jnp.float32)
-    aux_ref[6, :] = jnp.zeros((lb,), jnp.float32)
-    aux_ref[7, :] = jnp.zeros((lb,), jnp.float32)
-    idx_ref[0, :] = jnp.zeros((lb,), jnp.int32)
-    return (ox, oy, oz), (dx, dy, dz), inv, active
-
-
-def _cull_mask(bbox_ref, j, o, inv, best, active):
-    """Per-ray pass mask of the slab test against box column ``j`` vs the
-    running best.  NaN-robust conservative form: a 0·inf NaN (axis-parallel
-    ray with origin on a slab plane) must NOT skip the box, so the miss
-    conditions are comparisons a NaN evaluates False."""
-    tx1 = (bbox_ref[0, j] - o[0]) * inv[0]
-    tx2 = (bbox_ref[3, j] - o[0]) * inv[0]
-    ty1 = (bbox_ref[1, j] - o[1]) * inv[1]
-    ty2 = (bbox_ref[4, j] - o[1]) * inv[1]
-    tz1 = (bbox_ref[2, j] - o[2]) * inv[2]
-    tz2 = (bbox_ref[5, j] - o[2]) * inv[2]
-    tmin = jnp.maximum(
-        jnp.maximum(jnp.minimum(tx1, tx2), jnp.minimum(ty1, ty2)),
-        jnp.minimum(tz1, tz2),
-    )
-    tmax = jnp.minimum(
-        jnp.minimum(jnp.maximum(tx1, tx2), jnp.maximum(ty1, ty2)),
-        jnp.maximum(tz1, tz2),
-    )
-    box_miss = (tmin > tmax) | (tmax <= 0.0) | (tmin >= best)
-    return active & ~box_miss
-
-
-def _cull_any(bbox_ref, j, o, inv, best, active):
-    return jnp.any(_cull_mask(bbox_ref, j, o, inv, best, active))
-
-
-def _cull_entry_batch(bbox_ref, nodes, o, inv, best, active):
-    """Batched box test: block entry t of the box columns in ``nodes``
-    (a list of traced scalars) as an (N,) vector — ONE (N, LB) slab
-    computation and ONE lane-reduce for all of them (separate 1-D tests
-    waste sublanes and pay a scalar reduction each).  +inf in a slot
-    means no lane passes that box.  NaN tmin (origin on a plane of an
-    axis-parallel ray) maps to 0.0."""
-
-    def col(k):
-        return jnp.stack([bbox_ref[k, n] for n in nodes])[:, None]  # (N, 1)
-
-    if jnp.ndim(o[0]) == 0:
-        # Shared-origin bounce 0: scalar origins broadcast against the
-        # (N, 1) box columns — the six subtractions become (N, 1) ops.
-        ox, oy, oz = o
-    else:
-        ox = o[0][None, :]
-        oy = o[1][None, :]
-        oz = o[2][None, :]
-    ix = inv[0][None, :]
-    iy = inv[1][None, :]
-    iz = inv[2][None, :]
-    tx1 = (col(0) - ox) * ix
-    tx2 = (col(3) - ox) * ix
-    ty1 = (col(1) - oy) * iy
-    ty2 = (col(4) - oy) * iy
-    tz1 = (col(2) - oz) * iz
-    tz2 = (col(5) - oz) * iz
-    tmin = jnp.maximum(
-        jnp.maximum(jnp.minimum(tx1, tx2), jnp.minimum(ty1, ty2)),
-        jnp.minimum(tz1, tz2),
-    )
-    tmax = jnp.minimum(
-        jnp.minimum(jnp.maximum(tx1, tx2), jnp.maximum(ty1, ty2)),
-        jnp.maximum(tz1, tz2),
-    )
-    box_miss = (tmin > tmax) | (tmax <= 0.0) | (tmin >= best[None, :])
-    passed = active[None, :] & ~box_miss
-    tmn0 = jnp.where(tmin >= 0.0, tmin, 0.0)
-    return jnp.min(jnp.where(passed, tmn0, INF), axis=1)  # (N,)
-
-
-DIST_BINS = 16  # front-to-back group ordering granularity
-
-
-def _group_distance_pass(gbox_ref, num_groups, o, inv, active, tmin_ref):
-    """Pass 1 of front-to-back traversal: per group, the block-level entry
-    distance (min over active rays of the slab entry t, clamped ≥ 0) into
-    SMEM; +inf when no active ray hits the group at all.  Returns (lo, hi)
-    over the finite entries.  NaN slab results (origin on a plane) map to
-    0 — processed first, never skipped."""
-
-    def body(g, carry):
-        lo, hi = carry
-        tx1 = (gbox_ref[0, g] - o[0]) * inv[0]
-        tx2 = (gbox_ref[3, g] - o[0]) * inv[0]
-        ty1 = (gbox_ref[1, g] - o[1]) * inv[1]
-        ty2 = (gbox_ref[4, g] - o[1]) * inv[1]
-        tz1 = (gbox_ref[2, g] - o[2]) * inv[2]
-        tz2 = (gbox_ref[5, g] - o[2]) * inv[2]
-        tmin = jnp.maximum(
-            jnp.maximum(jnp.minimum(tx1, tx2), jnp.minimum(ty1, ty2)),
-            jnp.minimum(tz1, tz2),
-        )
-        tmax = jnp.minimum(
-            jnp.minimum(jnp.maximum(tx1, tx2), jnp.maximum(ty1, ty2)),
-            jnp.maximum(tz1, tz2),
-        )
-        box_miss = (tmin > tmax) | (tmax <= 0.0)
-        entry = jnp.where(
-            active & ~box_miss,
-            jnp.where(tmin >= 0.0, tmin, 0.0),  # NaN → 0 (front bin)
-            INF,
-        )
-        bt = jnp.min(entry)
-        tmin_ref[g] = bt
-        lo = jnp.minimum(lo, bt)
-        hi = jnp.maximum(hi, jnp.where(bt < INF, bt, -INF))
-        return lo, hi
-
-    return jax.lax.fori_loop(0, num_groups, body, (INF, -INF))
-
-
-def _front_to_back_groups(gbox_ref, num_groups, o, inv, active, aux_ref,
-                          tmin_ref, process_group):
-    """Process surviving groups nearest-first in DIST_BINS distance bins.
-
-    Near groups settle ``best`` (aux_ref[2]) early, so the per-group cull's
-    ``tmin >= best`` clause occlusion-culls everything behind the first
-    hits — Morton order alone made `best` tighten too late and the r1
-    kernels swept effectively every tile of large scenes."""
-    lo, hi = _group_distance_pass(gbox_ref, num_groups, o, inv, active, tmin_ref)
-    inv_w = DIST_BINS / jnp.maximum(hi - lo, 1e-20)
-
-    def bin_body(k, _):
-        def g_body(g, _):
-            bt = tmin_ref[g]
-            bin_k = jnp.minimum(
-                jnp.floor((bt - lo) * inv_w), DIST_BINS - 1
-            ).astype(jnp.int32)
-
-            @pl.when((bt < INF) & (bin_k == k))
-            def _():
-                @pl.when(_cull_any(gbox_ref, g, o, inv, aux_ref[2, :], active))
-                def _():
-                    process_group(g)
-
-            return 0
-
-        jax.lax.fori_loop(0, num_groups, g_body, 0)
-        return 0
-
-    jax.lax.fori_loop(0, DIST_BINS, bin_body, 0)
-
-
-# Resident scenes below this many groups use the plain sequential tile loop:
-# the two-pass front-to-back machinery only pays off once there are enough
-# groups for occlusion culling to retire real work.
-F2B_MIN_GROUPS = 8
-
-
-# Resident scenes with at least this many tiles traverse the Morton-heap
-# tree (tree_bbox) instead of the flat/grouped tile loops: node tests
-# scale with the tiles a block's beam actually reaches, and near-child-
-# first ordering settles the running best early (occlusion culling).
-TREE_MIN_TILES = 16
-
-# Sub-block sweep predication: a surviving tile is swept per lane
-# SUB-RANGE (LANE_BLOCK // SUBBLOCK_SWEEP lanes each), each gated by its
-# own cull test — halves/quarters of a diverged block skip tiles the
-# whole-block any-lane test could not.  1 = whole-block updates.
-# (Measured WORSE at 2 on both the official scene — r2: trace 364 → 442
-# ms — and the 100k scene — r3: 4.09 → 3.51 Mrays/s: the extra per-sub-
-# block branch + reduce overhead exceeds the finer-cull savings.)
-SUBBLOCK_SWEEP = 1
-# When False, the trace kernels skip the per-tile winner u/v extraction
-# (two (Kt, LB) masked reduces per sweep); trace_emit_aux recomputes u/v
-# from the winner's transform rows once per bounce (recompute_uv — bit-
-# exact, verified in interpret mode and by the oracle-equality tests).
-# Measured on the 100k bench: 3.91 → 4.09 Mrays/s.  The whole-path kernel
-# shades in-kernel and always extracts (render/fused.py forces it).
-EXTRACT_UV_IN_KERNEL = False
-# When True, the rec-emit kernels extract the winner's packed shade
-# record ONCE per winner tile after traversal instead of once per swept
-# tile (_extract_winner_records).  The round-3 chip A/B
-# (scripts/ab_flags.py) measured the IN-SWEEP variant FASTER on the
-# official bench — 26.9 vs 25.5 Mrays/s median: the deferred pass's
-# winner-tile while_loop + re-slice costs more than the per-sweep
-# (Kt, LB) sel compare+cast it saves on a 7-tile scene — so in-sweep is
-# the production default.  HBM shade tables still force deferral (the
-# table can't be sliced per sweep), which covers every streamed scene.
-REC_EMIT_DEFERRED = False
-# When True, each tile sweep folds its winners (iota + candidate
-# min-reduce + best-t/idx/rec ref writes) only when SOME lane improved —
-# exact, because a non-improving sweep writes nothing.  The round-3 chip
-# A/B (scripts/ab_flags.py) measured the gate as a PESSIMIZATION on both
-# workloads (official 25.5→26.1, large 3.63→3.82 Mrays/s with gate off):
-# the any-reduce + scf branch costs more than the folded vector ops it
-# skips, so unconditional folding is the production default.
-GATE_WINNER_EXTRACT = False
-# Deterministic previous-hit exclusion (round 3).  The reference's
-# continuation rays re-originate at ray.at(t + floatEps(f32))
-# (src/stage3.zig:209,216) — an ABSOLUTE 1.19e-7 nudge that is a rounding
-# NO-OP once t >= 2 (ULP(2) = 2.4e-7), so whether the new trace
-# phantom-re-hits the SAME triangle at t ~ 0 is decided by backend
-# rounding luck (measured on the alpha_modes golden: XLA:CPU re-hits
-# 1085/1957 alpha pass-throughs, the TPU path 536; each phantom re-hit
-# burns a bounce + an RNG draw, fully decorrelating backends in
-# alpha-tested regions — two builds of the reference itself would diverge
-# the same way).  A same-triangle re-hit from a point on the triangle's
-# own plane is ALWAYS phantom: with front-face culling (det >= eps) a
-# second legitimate front-face crossing of the same plane cannot exist.
-# With this flag every trace path excludes the ray's previous hit
-# triangle, making renders deterministic across backends (and saving the
-# wasted re-trace bounce); False restores the reference's rounding-luck
-# behavior for A/B.
-EXCLUDE_PREV_HIT = True
-# Seed each bounce block's running best-t by sweeping the lanes'
-# PREVIOUS-HIT tiles before the traversal (continuation bounces only —
-# primaries have no previous hit).  Diffuse bounce rays overwhelmingly
-# re-hit geometry near their origin surface (terrain valleys, room
-# interiors), so sweeping the 1-4 distinct origin tiles of a sorted beam
-# first gives most lanes a TIGHT initial best, and the traversal's
-# `entry >= best` occlusion test then rejects the far corridor the block
-# would otherwise sweep.  Exact by construction: the seed only folds true
-# same-ray candidate hits, and nearest-hit is order-independent (modulo
-# the pre-existing first-visited-tile tie rule every traversal order
-# already has).  MEASURED WORSE on the 100k bench (2.90 vs 3.59 Mrays/s,
-# same session): the nearest-first DFS already tightens best on its first
-# leaves, bounce rays off convex terrain rarely re-hit their origin tile,
-# and each distinct prev tile costs an UNCULLED full-block sweep — so the
-# seed pays ~10 extra sweeps/block for pruning the traversal was already
-# getting.  Kept as an A/B lever (tests/test_tree.py pins exactness).
-SEED_PREV_TILE = False
-# DFS stack bound for the OCTAL traversal: each expansion pushes at most
-# 8 children and descends one octal level, so worst-case depth is
-# 8 · ceil(log2(P2)/3) + roots — 54 at P2 = 2^17 (the largest heap the
-# SMEM budget allows).  64 gives slack; _tree_traverse documents the
-# invariant.
-TREE_MAX_STACK = 64
-# Independent per-sub-beam traversal (round 3, cull-union simulation —
-# docs/NEXT.md): the resident tree path runs this many SEPARATE heap
-# walks per lane block, each over a LANE_BLOCK/n lane sub-range with its
-# own DFS stack and its own running best, so each sub-beam sweeps only
-# ITS cull union.  The lane-level simulator (scripts/cull_sim.py) on real
-# bounce waves of the 100k scene measured the 512-lane union at 75-103
-# tiles vs 37-47 at 128 lanes — halving L multiplies the union by ~0.70 —
-# so 4 sub-beams cut sweep VECTOR ops 2.0-2.2× at the cost of ~4× tree
-# expansions (~0.5 µs/step) and narrower (Kt, 128) sweeps.  Distinct from
-# the measured-worse SUBBLOCK_SWEEP predication, which gated sub-ranges
-# inside ONE shared tile order and paid a branch + reduce on every shared
-# tile; here each sub-beam's traversal never even reaches tiles outside
-# its own union.  Exact by construction: nearest-hit folding is
-# order-independent per lane, and every lane still sees every tile its
-# own rays can hit.  1 = whole-block traversal (off); sub-beams must stay
-# lane-aligned (LANE_BLOCK/n a multiple of 128).
-SUBBEAM_TRAVERSE = 1
-
-
-def _seed_prev_tiles(prev, active, tile: int, num_tiles, sweep_tile):
-    """Sweep each DISTINCT previous-hit tile of the block's alive lanes
-    (min-above walk, one iteration per distinct tile — the same walk as
-    _extract_winner_records) to seed best-t before traversal."""
-    shift = tile.bit_length() - 1
-    big = jnp.int32(1 << 30)
-    pt = jnp.where(active, jax.lax.shift_right_logical(prev, shift), big)
-    pt = jnp.where(pt < num_tiles, pt, big)  # total even on foreign ids
-
-    def nxt(last):
-        return jnp.min(jnp.where(pt > last, pt, big))
-
-    def cond(jt):
-        return jt < big
-
-    def body(jt):
-        sweep_tile(jt)
-        return nxt(jt)
-
-    jax.lax.while_loop(cond, body, nxt(jnp.int32(-1)))
-
-
-def _trace_body_resident(state_ref, tri_ref, bbox_ref, gbox_ref, aux_ref,
-                         idx_ref, tmin_ref, table_ref=None, rec_ref=None,
-                         tile=TRI_TILE, group_tiles=GROUP_TILES,
-                         tree_ref=None, stack_ref=None, extract_uv=None,
-                         table_hbm: bool = False, origin=None, prev=None):
-    Tp = tri_ref.shape[1]
-    num_tiles = bbox_ref.shape[1]  # REAL tiles (loop bound)
-    num_groups = gbox_ref.shape[1]
-    o, d, inv, active = _init_trace_refs(state_ref, aux_ref, idx_ref)
-    # Shared-origin bounce 0 (``origin`` = 3 scalars): the cull/traversal
-    # paths use the scalars too — the slab tests' six per-lane origin
-    # subtractions collapse to scalar ops, bit-identical because every
-    # lane's state rows 0-2 hold exactly these values (_gen_rays).
-    oc = origin if origin is not None else o
-    if rec_ref is not None:
-        rec_ref[:, :] = jnp.zeros(rec_ref.shape, jnp.float32)
-    # Record emission is deferred out of the sweep (one dot per WINNER
-    # tile after traversal, _extract_winner_records) unless the in-sweep
-    # A/B variant is forced.  The deferred pass also recomputes the
-    # winner's u/v (bit-exact, same FMA order), so sweeps skip their u/v
-    # reduces entirely in that mode.
-    # An HBM table cannot be sliced per sweep — it forces deferral even
-    # when the in-sweep A/B variant is requested.
-    deferred = rec_ref is not None and (REC_EMIT_DEFERRED or table_hbm)
-    sweep_table = table_ref if not deferred else None
-    sweep_rec = rec_ref if not deferred else None
-
-    if extract_uv is None:
-        extract_uv = EXTRACT_UV_IN_KERNEL
-    if deferred:
-        extract_uv = False
-
-    def sweep_tile(jt, sl=slice(None)):
-        # (On the official 7-tile scene, sub-block predication measured
-        # WORSE — trace 364 → 442 ms/frame: the per-sub-block branch +
-        # reduce overhead exceeds the finer-cull savings there.  Large
-        # diverged scenes are gated by SUBBLOCK_SWEEP.)
-        # ``sl``: static lane sub-range when the per-sub-beam traversal
-        # drives this sweep (SUBBEAM_TRAVERSE > 1) — the update touches
-        # only that sub-beam's lanes.
-        s = pl.multiple_of(jt * tile, tile)
-        rows = tri_ref[:, pl.ds(s, tile)]  # (13, Kt)
-        table_rows = (
-            sweep_table[:, pl.ds(s, tile)] if sweep_table is not None
-            else None
-        )
-        if sl != slice(None):
-            _tile_update(
-                rows, o[0], o[1], o[2], d[0], d[1], d[2], s, Tp,
-                aux_ref, idx_ref, sl=sl, table_rows=table_rows,
-                rec_ref=sweep_rec, extract_uv=extract_uv,
-                origin=origin, prev=prev,
-            )
-            return
-        if SUBBLOCK_SWEEP > 1:
-            lb = aux_ref.shape[1]
-            w = lb // SUBBLOCK_SWEEP
-            jc = jnp.minimum(jt, num_tiles - 1)
-            for q in range(SUBBLOCK_SWEEP):
-                sl = slice(q * w, (q + 1) * w)
-                o_sl = oc if origin is not None else (
-                    o[0][sl], o[1][sl], o[2][sl]
-                )
-                hit_q = jnp.any(_cull_mask(
-                    bbox_ref, jc, o_sl,
-                    (inv[0][sl], inv[1][sl], inv[2][sl]),
-                    aux_ref[2, sl], active[sl],
-                ))
-
-                @pl.when(hit_q)
-                def _(sl=sl):
-                    _tile_update(
-                        rows, o[0], o[1], o[2], d[0], d[1], d[2], s, Tp,
-                        aux_ref, idx_ref, sl=sl, table_rows=table_rows,
-                        rec_ref=sweep_rec, extract_uv=extract_uv,
-                        origin=origin, prev=prev,
-                    )
-            return
-        _tile_update(
-            rows, o[0], o[1], o[2], d[0], d[1], d[2], s, Tp,
-            aux_ref, idx_ref,
-            table_rows=table_rows,
-            rec_ref=sweep_rec,
-            extract_uv=extract_uv,
-            origin=origin,
-            prev=prev,
-        )
-
-    def visit_tile(jt, real):
-        jc = jnp.minimum(jt, num_tiles - 1)  # clamp the SMEM bbox read
-        hit = real & _cull_any(bbox_ref, jc, oc, inv, aux_ref[2, :], active)
-
-        @pl.when(hit)
-        def _():
-            sweep_tile(jt)
-
-    def traverse():
-        if (
-            tree_ref is not None
-            and stack_ref is not None
-            and num_tiles >= TREE_MIN_TILES
-        ):
-            # The traversal's own child test IS the tile cull (leaf box =
-            # tile box), so leaves sweep directly.
-            lb = aux_ref.shape[1]
-            nsb = SUBBEAM_TRAVERSE
-            if nsb > 1 and lb % (nsb * 128) == 0:
-                # Independent per-sub-beam walks (see SUBBEAM_TRAVERSE):
-                # each 1/nsb lane sub-range traverses with its own stack
-                # (reused sequentially) and its own running best, sweeping
-                # only the tiles ITS beam reaches.
-                w = lb // nsb
-                for q in range(nsb):
-                    sl = slice(q * w, (q + 1) * w)
-                    o_sl = oc if origin is not None else (
-                        o[0][sl], o[1][sl], o[2][sl]
-                    )
-                    inv_sl = (inv[0][sl], inv[1][sl], inv[2][sl])
-                    _tree_traverse(
-                        tree_ref, stack_ref, o_sl, inv_sl, active[sl],
-                        aux_ref,
-                        lambda jt, real, sl=sl: sweep_tile(jt, sl=sl),
-                        num_tiles, sl=sl,
-                    )
-                return
-            _tree_traverse(
-                tree_ref, stack_ref, oc, inv, active, aux_ref,
-                lambda jt, real: sweep_tile(jt), num_tiles,
-            )
-            return
-
-        if num_groups < F2B_MIN_GROUPS:
-            def tile_body(jt, _):
-                visit_tile(jt, True)
-                return 0
-
-            jax.lax.fori_loop(0, num_tiles, tile_body, 0)
-            return
-
-        def process_group(g):
-            def tile_body(jg, _):
-                jt = g * group_tiles + jg
-                visit_tile(jt, jt < num_tiles)
-                return 0
-
-            jax.lax.fori_loop(0, group_tiles, tile_body, 0)
-
-        _front_to_back_groups(
-            gbox_ref, num_groups, oc, inv, active, aux_ref, tmin_ref,
-            process_group,
-        )
-
-    if prev is not None and SEED_PREV_TILE:
-        # Tight initial best-t from the lanes' own previous-hit tiles —
-        # the traversal below then occlusion-culls the far corridor.
-        _seed_prev_tiles(prev, active, tile, num_tiles, sweep_tile)
-    traverse()
-    if deferred:
-        _extract_winner_records(
-            table_ref, aux_ref, idx_ref, rec_ref, tile,
-            tri_ref=tri_ref, o=o, d=d, table_hbm=table_hbm,
-        )
-
-
-def _tree_traverse(tree_ref, stack_ref, o, inv, active, aux_ref, visit_tile,
-                   num_tiles, sl=slice(None)):
-    """Depth-first traversal of the binary Morton heap, expanding THREE
-    levels per step: each pop tests its node's 8 GREAT-GRANDCHILDREN in
-    one (8, LB) slab batch with a single lane-reduce, visiting them
-    (when they are leaves) or pushing them (when internal) nearest-block-
-    entry-first.  The octal jump exists because the while-loop step
-    itself costs ~0.5 µs (scalar sequencing + stack traffic) — profiled
-    at ~60% of large-scene trace time with one-level binary expansions.
-
-    Stack discipline: only nodes whose leaf-distance is a multiple of 3
-    are ever pushed (the roots fix up ``depth mod 3``), so a popped node
-    has leaves as great-grandchildren iff node >= p2/8.  Tests run
-    against the RUNNING best (aux_ref[2]) at expansion time, which
-    occlusion-culls whole subtrees pushed before the best tightened;
-    visited leaves skip the duplicate re-cull (same box, same best).
-    Padded/empty subtrees hold the always-miss box and can never pass.
-    Sibling ordering: the nearest child is visited first / popped first;
-    the other seven keep index order (a full 8-sort measured no better).
-    """
-    p2 = tree_ref.shape[1] // 2
-    depth = p2.bit_length() - 1  # leaf distance of the root
-
-    if depth < 3:
-        # Tiny trees (callers gate on TREE_MIN_TILES = 16 → depth >= 4,
-        # but stay total): flat sweep.
-        def tile_body(jt, _):
-            visit_tile(jt, jt < num_tiles)
-            return 0
-
-        jax.lax.fori_loop(0, num_tiles, tile_body, 0)
-        return
-
-    def cond(sp):
-        return sp > 0
-
-    def body(sp):
-        sp = sp - 1
-        node = stack_ref[sp]
-        best = aux_ref[2, sl]
-        # Diagnostic: expansions (while-loop iterations) per block — aux
-        # row 6 (row 5 counts tile sweeps); scripts/cull_stats.py reads it.
-        aux_ref[6, sl] = aux_ref[6, sl] + 1.0
-        base = 8 * node
-        ent = _cull_entry_batch(
-            tree_ref, [base + j for j in range(8)], o, inv, best, active
-        )  # (8,)
-        emin = jnp.min(ent)
-        jmin = jnp.argmin(ent).astype(jnp.int32)
-        any_hit = emin < INF
-        # Passing children as a bitmask scalar (dynamic vector indexing
-        # inside the loops below would not lower; bit math does).
-        vm = jnp.sum(
-            jnp.where(ent < INF, jnp.left_shift(1, jnp.arange(8)), 0)
-        ).astype(jnp.int32)
-        child_leaf = node >= (p2 // 8)
-
-        # Leaf children sweep nearest-first inside ONE gated fori (a
-        # single inlined copy of the sweep body keeps Mosaic code size
-        # bounded); whole-leaf-row misses skip the loop entirely.
-        @pl.when(any_hit & child_leaf)
-        def _():
-            visit_tile(jnp.minimum(base + jmin - p2, num_tiles - 1), True)
-
-            def jbody(j, _):
-                ok = (jax.lax.shift_right_logical(vm, j) & 1) > 0
-
-                @pl.when(ok & (j != jmin))
-                def _():
-                    visit_tile(
-                        jnp.minimum(base + j - p2, num_tiles - 1), True
-                    )
-
-                return 0
-
-            jax.lax.fori_loop(0, 8, jbody, 0)
-
-        # Internal children push BRANCHLESSLY: write the candidate into
-        # the current slot unconditionally and advance the stack pointer
-        # only when it passed — a dead write is overwritten by the next
-        # push (or never popped), and the static unroll removes the eight
-        # scalar loop steps AND the eight `pl.when`s per expansion the old
-        # fori paid (profiled: traversal sequencing was ~1/3 of bounce
-        # trace on the 100k scene).  Nearest child last, so it pops first.
-        internal = any_hit & ~child_leaf
-        for j in range(8):
-            do_push = (
-                internal
-                & ((jax.lax.shift_right_logical(vm, j) & 1) > 0)
-                & (j != jmin)
-            )
-            stack_ref[sp] = base + j
-            sp = sp + do_push.astype(jnp.int32)
-        stack_ref[sp] = base + jmin
-        return sp + internal.astype(jnp.int32)
-
-    # Roots: all nodes at depth (depth mod 3), so every stacked node's
-    # leaf distance is a multiple of 3.  At most 4 of them.
-    n_roots = 1 << (depth % 3)
-    for k in range(n_roots):
-        stack_ref[k] = n_roots + k
-    jax.lax.while_loop(cond, body, n_roots)
-
-
-def _origin3(origin_ref):
-    """SMEM (3,) camera-origin operand → scalar 3-tuple (or None)."""
-    if origin_ref is None:
-        return None
-    return (origin_ref[0], origin_ref[1], origin_ref[2])
-
-
-def _prev_vec(prev_ref):
-    """(1, LB) int32 previous-hit input → (LB,) vector (or None)."""
-    if prev_ref is None:
-        return None
-    return prev_ref[0, :]
-
-
-def _make_trace_kernel_t(tile, group_tiles, use_origin: bool = False,
-                         use_prev: bool = False):
-    def _trace_kernel_t(state_ref, tri_ref, bbox_ref, gbox_ref, tree_ref,
-                        *rest):
-        origin_ref, rest = (rest[0], rest[1:]) if use_origin else (None, rest)
-        prev_ref, rest = (rest[0], rest[1:]) if use_prev else (None, rest)
-        aux_ref, idx_ref, tmin_ref, stack_ref = rest
-        _trace_body_resident(
-            state_ref, tri_ref, bbox_ref, gbox_ref, aux_ref, idx_ref,
-            tmin_ref, tile=tile, group_tiles=group_tiles,
-            tree_ref=tree_ref, stack_ref=stack_ref,
-            origin=_origin3(origin_ref), prev=_prev_vec(prev_ref),
-        )
-
-    return _trace_kernel_t
-
-
-def _make_trace_kernel_t_rec(tile, group_tiles, table_hbm: bool = False,
-                             use_origin: bool = False,
-                             use_prev: bool = False):
-    def _trace_kernel_t_rec(state_ref, tri_ref, bbox_ref, gbox_ref, tree_ref,
-                            table_ref, *rest):
-        origin_ref, rest = (rest[0], rest[1:]) if use_origin else (None, rest)
-        prev_ref, rest = (rest[0], rest[1:]) if use_prev else (None, rest)
-        aux_ref, idx_ref, rec_ref, tmin_ref, stack_ref = rest
-        _trace_body_resident(
-            state_ref, tri_ref, bbox_ref, gbox_ref, aux_ref, idx_ref,
-            tmin_ref, table_ref, rec_ref, tile=tile, group_tiles=group_tiles,
-            tree_ref=tree_ref, stack_ref=stack_ref, table_hbm=table_hbm,
-            origin=_origin3(origin_ref), prev=_prev_vec(prev_ref),
-        )
-
-    return _trace_kernel_t_rec
-
-
-def _make_trace_kernel_t_hbm(tile, group_tiles, emit_rec: bool = False,
-                             use_origin: bool = False,
-                             use_prev: bool = False):
-    if emit_rec:
-        def _trace_kernel_t_hbm_rec(state_ref, tri_hbm_ref, bbox_ref,
-                                    gbox_ref, gtree_ref, table_ref, *rest):
-            origin_ref, rest = (
-                (rest[0], rest[1:]) if use_origin else (None, rest)
-            )
-            prev_ref, rest = (
-                (rest[0], rest[1:]) if use_prev else (None, rest)
-            )
-            aux_ref, idx_ref, rec_ref, tmin_ref, stack_ref = rest
-            _trace_kernel_t_hbm_body(
-                state_ref, tri_hbm_ref, bbox_ref, gbox_ref, aux_ref, idx_ref,
-                tmin_ref, tile, group_tiles, gtree_ref, stack_ref,
-                table_ref=table_ref, rec_ref=rec_ref,
-                origin=_origin3(origin_ref), prev=_prev_vec(prev_ref),
-            )
-
-        return _trace_kernel_t_hbm_rec
-
-    def _trace_kernel_t_hbm(state_ref, tri_hbm_ref, bbox_ref, gbox_ref,
-                            gtree_ref, *rest):
-        origin_ref, rest = (rest[0], rest[1:]) if use_origin else (None, rest)
-        prev_ref, rest = (rest[0], rest[1:]) if use_prev else (None, rest)
-        aux_ref, idx_ref, tmin_ref, stack_ref = rest
-        _trace_kernel_t_hbm_body(
-            state_ref, tri_hbm_ref, bbox_ref, gbox_ref, aux_ref, idx_ref,
-            tmin_ref, tile, group_tiles, gtree_ref, stack_ref,
-            origin=_origin3(origin_ref), prev=_prev_vec(prev_ref),
-        )
-
-    return _trace_kernel_t_hbm
-
-
-def _trace_kernel_t_hbm_body(state_ref, tri_hbm_ref, bbox_ref, gbox_ref,
-                             aux_ref, idx_ref, tmin_ref, tile, group_tiles,
-                             gtree_ref=None, stack_ref=None, table_ref=None,
-                             rec_ref=None, origin=None, prev=None):
-    """HBM-streaming variant: the transform bank stays in HBM.  The
-    front-to-back group cull gates the DMA stream — a culled group of
-    ``group_tiles`` tiles costs one slab test and moves ZERO bytes (r1
-    fetched every tile: ~13 KB × all tiles × every ray block, which made
-    100k-triangle scenes DMA-bound).  Within a surviving group, tiles
-    double-buffer so the copy of tile j+1 overlaps tile j's work.
-
-    ``table_ref``/``rec_ref``: streaming scenes also emit the winner's
-    packed shade record and exact u/v — post-traversal, one winner tile
-    at a time, with the table AND bank slices DMA'd on demand
-    (_extract_winner_records with table_hbm + tri_hbm)."""
-    Tp = tri_hbm_ref.shape[1]
-    num_tiles = bbox_ref.shape[1]  # REAL tiles
-    num_groups = gbox_ref.shape[1]
-    o, d, inv, active = _init_trace_refs(state_ref, aux_ref, idx_ref)
-    # Shared-origin bounce 0 (see _trace_body_resident): culls and sweeps
-    # use the camera scalars, bit-identical to the per-lane rows.
-    oc = origin if origin is not None else o
-    # Streaming extraction is ALWAYS deferred (_extract_winner_records runs
-    # post-traversal); in-sweep u/v reduces would be overwritten, so force
-    # them off exactly like the resident kernel's deferred mode.
-    extract_uv = False if rec_ref is not None else EXTRACT_UV_IN_KERNEL
-    if rec_ref is not None:
-        rec_ref[:, :] = jnp.zeros(rec_ref.shape, jnp.float32)
-
-    def scoped(scratch, sems):
-        def get_dma(slot, jt):
-            src = pl.multiple_of(jt * tile, tile)
-            return pltpu.make_async_copy(
-                tri_hbm_ref.at[:, pl.ds(src, tile)],
-                scratch.at[slot],
-                sems.at[slot],
-            )
-
-        def process_group(g):
-            # A group's first tile is always real (groups cover real tiles).
-            get_dma(0, g * group_tiles).start()
-
-            def tile_body(jg, _):
-                jt = g * group_tiles + jg
-                real = jt < num_tiles
-                slot = jax.lax.rem(jg, 2)
-                nslot = jax.lax.rem(jg + 1, 2)
-
-                @pl.when((jg + 1 < group_tiles) & (jt + 1 < num_tiles))
-                def _():
-                    get_dma(nslot, jt + 1).start()
-
-                # Tile cull before the wait so it overlaps the copy.
-                jc = jnp.minimum(jt, num_tiles - 1)
-                tile_hit = real & _cull_any(
-                    bbox_ref, jc, oc, inv, aux_ref[2, :], active
-                )
-
-                @pl.when(real)
-                def _():
-                    get_dma(slot, jt).wait()
-
-                @pl.when(tile_hit)
-                def _():
-                    s = pl.multiple_of(jt * tile, tile)
-                    if SUBBLOCK_SWEEP > 1:
-                        lb = aux_ref.shape[1]
-                        w = lb // SUBBLOCK_SWEEP
-                        for q in range(SUBBLOCK_SWEEP):
-                            sl = slice(q * w, (q + 1) * w)
-                            o_sl = oc if origin is not None else (
-                                o[0][sl], o[1][sl], o[2][sl]
-                            )
-                            hit_q = jnp.any(_cull_mask(
-                                bbox_ref, jc, o_sl,
-                                (inv[0][sl], inv[1][sl], inv[2][sl]),
-                                aux_ref[2, sl], active[sl],
-                            ))
-
-                            @pl.when(hit_q)
-                            def _(sl=sl):
-                                _tile_update(
-                                    scratch[slot], o[0], o[1], o[2],
-                                    d[0], d[1], d[2], s, Tp, aux_ref,
-                                    idx_ref, sl=sl,
-                                    extract_uv=extract_uv,
-                                    origin=origin, prev=prev,
-                                )
-                    else:
-                        _tile_update(
-                            scratch[slot], o[0], o[1], o[2], d[0], d[1],
-                            d[2], s, Tp, aux_ref, idx_ref,
-                            extract_uv=extract_uv,
-                            origin=origin, prev=prev,
-                        )
-
-                return 0
-
-            jax.lax.fori_loop(0, group_tiles, tile_body, 0)
-
-        if prev is not None and SEED_PREV_TILE:
-            # Seed best-t from the lanes' previous-hit tiles (1-4 distinct
-            # tiles for a sorted beam; one blocking ~13 KB DMA each) so the
-            # group traversal below DMAs nothing the seeded best occludes.
-            def seed_sweep(jt):
-                cp = get_dma(0, jt)
-                cp.start()
-                cp.wait()
-                s = pl.multiple_of(jt * tile, tile)
-                _tile_update(
-                    scratch[0], o[0], o[1], o[2], d[0], d[1], d[2], s, Tp,
-                    aux_ref, idx_ref, extract_uv=extract_uv,
-                    origin=origin, prev=prev,
-                )
-
-            _seed_prev_tiles(prev, active, tile, num_tiles, seed_sweep)
-
-        if (
-            gtree_ref is not None
-            and stack_ref is not None
-            and num_groups >= TREE_MIN_TILES
-        ):
-            # Tree-over-groups: node tests scale with the groups a block's
-            # beam reaches (the flat front-to-back pass cost a slab test
-            # per group per block — ~1000 for a 2M-triangle scene), and a
-            # culled subtree moves zero bytes.  Leaves re-cull inside
-            # visit_group before starting any DMA.
-            def visit_group(g, real):
-                # Re-cull against the RUNNING best before committing any
-                # DMA: the best may have tightened between this group's
-                # expansion test and its pop-order turn, and a skipped
-                # group moves zero bytes (the whole point of streaming
-                # culls).  Resident leaves skip this — their sweep is
-                # cheaper than the wasted bytes are here.
-                @pl.when(_cull_any(gbox_ref, g, oc, inv, aux_ref[2, :],
-                                   active))
-                def _():
-                    process_group(g)
-
-            _tree_traverse(
-                gtree_ref, stack_ref, oc, inv, active, aux_ref, visit_group,
-                num_groups,
-            )
-            return
-
-        _front_to_back_groups(
-            gbox_ref, num_groups, oc, inv, active, aux_ref, tmin_ref,
-            process_group,
-        )
-
-    pl.run_scoped(
-        scoped,
-        scratch=pltpu.VMEM((2, _BANK_ROWS, tile), jnp.float32),
-        sems=pltpu.SemaphoreType.DMA((2,)),
-    )
-    if rec_ref is not None:
-        _extract_winner_records(
-            table_ref, aux_ref, idx_ref, rec_ref, tile,
-            tri_ref=tri_hbm_ref, o=o, d=d, table_hbm=True, tri_hbm=True,
-        )
-
-
-# Up to this many padded triangles the packed shade table is VMEM-resident
-# in the rec-emit kernels (bank 16 rows + table 24 rows at 2^15 tris ≈
-# 5.2 MB, leaving room for the (Kt, LB) intermediates).  Bigger RESIDENT
-# scenes still emit records in-kernel — the table stays in HBM and the
-# deferred extraction DMAs each winner tile's (24, tile) slice on demand
-# (_extract_winner_records table_hbm) — so every resident scene skips the
-# per-bounce XLA (24, R) record gather AND the (13, R) u/v recompute
-# gather.  The whole-path kernel still requires the VMEM-resident table
-# (it shades every bounce in-kernel; render/wavefront.whole_path_regime).
-REC_EMIT_MAX_TRIS = 1 << 15
-
-
-@partial(jax.jit, static_argnames=("interpret",))
-def trace_emit_aux(tris: MXUTriangles, state16, rec_table=None,
-                   interpret: bool = False, origin=None, prev=None):
-    """Field-major nearest hit: (16, R) state → (aux (8, R), idx_m (R,),
-    rec (24, R) | None).
-
-    ``origin``: optional (3,) f32 camera origin when EVERY lane's state
-    rows 0-2 hold exactly these values (bounce-0 primary rays).  The
-    kernels then run their origin transforms and slab-cull subtractions
-    on the scalars — bit-identical, fewer vector ops (see
-    _tile_update's shared-origin note).
-
-    ``prev``: optional (R,) int32 MORTON-space index of each ray's
-    previous hit triangle (EXCLUDE_PREV_HIT); the sweeps mask it out so
-    the continuation ray can never phantom-re-hit its own origin
-    triangle.  Pass None for primary rays.
-
-    aux is ready for render/fused.py (u, v, t, streams, alive rows filled);
-    ``idx_m`` is the MORTON-space triangle index — the fused pipeline's
-    shade_table_t is pre-permuted into the same order, so no perm gather.
-
-    ``rec_table`` (the (24, Tp) Morton-ordered packed shade table,
-    scene/types.py shade_table_t): when given, the kernel emits each ray's
-    winning record in EVERY regime — VMEM-resident tables in-sweep or
-    deferred, larger tables (> REC_EMIT_MAX_TRIS) and streaming scenes via
-    HBM with only the winner tiles DMA'd post-traversal
-    (_extract_winner_records).  rec is None only when rec_table is None.
-    Missed rays get an all-zero record (masked by alive/missed downstream
-    exactly like the gather path's tri_m = 0 row).
-    """
-    R = state16.shape[1]
-    assert R % LANE_BLOCK == 0, f"wave {R} not a multiple of {LANE_BLOCK}"
-    streaming = tris.tri_data.shape[1] > VMEM_RESIDENT_MAX_TRIS
-    emit_rec = rec_table is not None
-    # Past the VMEM-table bound the table rides in HBM and only winner
-    # tiles are DMA'd (deferred extraction) — see REC_EMIT_MAX_TRIS.
-    # Streaming scenes DMA the winner's bank slice the same way.
-    table_hbm = emit_rec and (
-        streaming or tris.tri_data.shape[1] > REC_EMIT_MAX_TRIS
-    )
-    lane_block = (
-        LANE_BLOCK_RESIDENT
-        if not streaming
-        and tris.tri_data.shape[1] <= VMEM_WIDE_BLOCK_MAX_TRIS
-        and R % LANE_BLOCK_RESIDENT == 0
-        else LANE_BLOCK
-    )
-    # The kernels index per-tile bboxes by tile id — tile size and bake
-    # granularity must agree.
-    # tile_bbox covers REAL tiles; the bank is padded to whole groups so
-    # last-group DMA slices stay in bounds.
-    real_tiles = tris.tile_bbox.shape[1]
-    tile, group_tiles = tris.tile, tris.group_tiles
-    assert tris.group_bbox.shape[1] == -(-real_tiles // group_tiles)
-    assert tris.tri_data.shape[1] >= real_tiles * tile
-    assert tris.tri_data.shape[1] % (tile * group_tiles) == 0
-    nb = R // lane_block
-
-    tri_space = pl.ANY if streaming else pltpu.VMEM
-    num_groups = tris.group_bbox.shape[1]
-    in_specs = [
-        pl.BlockSpec((16, lane_block), lambda i: (0, i), memory_space=pltpu.VMEM),
-        pl.BlockSpec(tris.tri_data.shape, lambda i: (0, 0), memory_space=tri_space),
-        pl.BlockSpec(tris.tile_bbox.shape, lambda i: (0, 0), memory_space=pltpu.SMEM),
-        pl.BlockSpec(tris.group_bbox.shape, lambda i: (0, 0), memory_space=pltpu.SMEM),
-    ]
-    out_specs = [
-        pl.BlockSpec((8, lane_block), lambda i: (0, i), memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, lane_block), lambda i: (0, i), memory_space=pltpu.VMEM),
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((8, R), jnp.float32),
-        jax.ShapeDtypeStruct((1, R), jnp.int32),
-    ]
-    operands = [state16, tris.tri_data, tris.tile_bbox, tris.group_bbox]
-    scratch_shapes = [
-        pltpu.SMEM((num_groups,), jnp.float32),
-    ]
-    # Every kernel gets a Morton-heap + DFS stack: the resident ones
-    # traverse the TILE tree, the streaming one the GROUP tree.
-    heap = tris.group_tree_bbox if streaming else tris.tree_bbox
-    in_specs.append(
-        pl.BlockSpec(heap.shape, lambda i: (0, 0), memory_space=pltpu.SMEM)
-    )
-    operands.append(heap)
-    scratch_shapes.append(pltpu.SMEM((TREE_MAX_STACK,), jnp.int32))
-    use_origin = origin is not None
-    use_prev = prev is not None and EXCLUDE_PREV_HIT
-    if emit_rec:
-        kernel = (
-            _make_trace_kernel_t_hbm(tile, group_tiles, emit_rec=True,
-                                     use_origin=use_origin,
-                                     use_prev=use_prev)
-            if streaming
-            else _make_trace_kernel_t_rec(tile, group_tiles,
-                                          table_hbm=table_hbm,
-                                          use_origin=use_origin,
-                                          use_prev=use_prev)
-        )
-        in_specs.append(
-            pl.BlockSpec(
-                rec_table.shape, lambda i: (0, 0),
-                memory_space=pl.ANY if table_hbm else pltpu.VMEM,
-            )
-        )
-        out_specs.append(
-            pl.BlockSpec((24, lane_block), lambda i: (0, i), memory_space=pltpu.VMEM)
-        )
-        out_shape.append(jax.ShapeDtypeStruct((24, R), jnp.float32))
-        operands.append(rec_table)
-    else:
-        kernel = (
-            _make_trace_kernel_t_hbm(tile, group_tiles,
-                                     use_origin=use_origin,
-                                     use_prev=use_prev)
-            if streaming
-            else _make_trace_kernel_t(tile, group_tiles,
-                                      use_origin=use_origin,
-                                      use_prev=use_prev)
-        )
-    if use_origin:
-        in_specs.append(
-            pl.BlockSpec((3,), lambda i: (0,), memory_space=pltpu.SMEM)
-        )
-        operands.append(jnp.asarray(origin, jnp.float32).reshape(3))
-    if use_prev:
-        in_specs.append(
-            pl.BlockSpec((1, lane_block), lambda i: (0, i),
-                         memory_space=pltpu.VMEM)
-        )
-        operands.append(prev.reshape(1, R).astype(jnp.int32))
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(nb,),
-        interpret=interpret,
-        scratch_shapes=scratch_shapes,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-    )(*operands)
-
-    if emit_rec:
-        aux, idx_m, rec = out
-    else:
-        aux, idx_m = out
-        rec = None
-    if not EXTRACT_UV_IN_KERNEL and not (
-        emit_rec and (REC_EMIT_DEFERRED or table_hbm)
-    ):
-        # Rec-emit kernels in deferred mode (incl. every HBM-table and
-        # streaming rec variant) already filled exact u/v in-kernel; only
-        # the record-less kernels still need the XLA winner recompute.
-        aux = recompute_uv(tris, state16, aux, idx_m[0])
-    return aux, idx_m[0], rec
+    return finish_hits(tris, active, t, idx_b, u, v)

@@ -1,15 +1,14 @@
 """Stateless counter-based RNG, pure vector ops — no threefry, no gathers.
 
 The reference seeds one sequential PRNG per OS thread with the thread index
-(src/stage3.zig:225), so its output depends on thread count.  The TPU-native
-replacement derives every random draw as a pure function of
+(src/stage3.zig:225), so its output depends on thread count.  The
+replacement here derives every random draw as a pure function of
 (seed, global ray id, stream tag): deterministic regardless of wave size,
-device count, or sharding, and embarrassingly vectorizable on the VPU.
+device count, or sharding, and embarrassingly vectorizable.
 
-Early builds used vmapped ``jax.random.fold_in`` chains (threefry); profiled
-on v5e they cost as much as the intersection kernel itself.  This module
-uses a two-stage integer mix (SplitMix/lowbias-style finalizers), ~10 int
-ops per 32-bit draw, measured >10× cheaper.  Bit-exact parity with the
+A two-stage integer mix (SplitMix/lowbias-style finalizers), ~10 int ops
+per 32-bit draw, in place of vmapped ``jax.random.fold_in`` chains
+(threefry).  Bit-exact parity with the
 reference is impossible by construction (SURVEY.md §7.5); acceptance is
 statistical, so hash quality (avalanche) is what matters, not crypto.
 """
@@ -54,9 +53,8 @@ def _bits(streams, tag, word: int):
 def _u01(bits):
     """uint32 → float32 in (0, 1): 24-bit mantissa, never exactly 0.
 
-    Routed through int32 (exact: the 24-bit value is int32-safe) because
-    Mosaic has no uint32→f32 cast — this single definition is shared by the
-    XLA path and the fused Pallas kernels (render/fused.py imports it).
+    Routed through int32 (exact: the 24-bit value is int32-safe); the
+    native C++ tracer mirrors this definition.
     """
     return ((bits >> 8).astype(jnp.int32).astype(jnp.float32) + 0.5) * jnp.float32(
         1.0 / (1 << 24)

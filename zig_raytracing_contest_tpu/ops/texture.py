@@ -30,16 +30,15 @@ def _frac(v):
 def _texel_pair(u, wf, lo_f, hi_f, is_repeat):
     """Texel indices (x1, x2) for one axis, all-float math.
 
-    TPU VPUs have no integer divide — ``jnp.mod(int, int)`` expands to a
-    sequence ~250× slower than the surrounding math (measured: 8 ms per op
-    per 0.5M rays).  The reference semantics (src/stage3.zig:112-117):
+    No integer divide or mod: the reference semantics
+    (src/stage3.zig:112-117):
 
         x1 = mod(clamp(floor(w·u), lo, hi), w)
         x2 = mod(clamp(floor(w·u)+1, lo, hi), w)
 
     Repeat mode (lo/hi at the int32 sentinels, clamp = identity) satisfies
     ``floor(w·u) mod w == floor(w · (u - floor(u)))`` for integer w, and
-    ``x2 = (x1+1) mod w == x1+1 - w·[x1+1 ≥ w]`` — both pure float VPU ops,
+    ``x2 = (x1+1) mod w == x1+1 - w·[x1+1 ≥ w]`` — both pure float ops,
     exact wherever the reference's own f32 ``floor(w·u)`` is exact.  Clamp
     mode clamps in float (bounds ≤ 2^24, exactly representable) and the mod
     is then the identity.

@@ -2,13 +2,13 @@
 
 The reference's only render parallelism is fork-join OS threads over
 contiguous pixel blocks with zero communication (src/stage3.zig:222-256).
-The TPU-native equivalent (SURVEY.md §2): a 1D ``jax.sharding.Mesh`` over
-chips, ``shard_map`` with the framebuffer sharded by pixel tile and the
+The device equivalent (SURVEY.md §2): a 1D ``jax.sharding.Mesh`` over
+devices, ``shard_map`` with the framebuffer sharded by pixel tile and the
 scene (read-only) replicated.  Each device renders exactly the global ray
-ids of its own pixel tile, so the per-ray counter RNG makes the multi-chip
-image bit-identical to the single-chip one; the only collective is the
-implicit all-gather when the sharded framebuffer is assembled at the end —
-over ICI, nothing in the hot loop.
+ids of its own pixel tile, so the per-ray counter RNG makes the
+multi-device image bit-identical to the single-device one; the only
+collective is the gather of the sharded framebuffer at the end, nothing
+in the hot loop.
 """
 
 from __future__ import annotations
@@ -27,17 +27,8 @@ from ..scene.camera import Camera
 from ..scene.types import DeviceScene
 from ..utils.image_io import write_png
 from ..utils.timing import PhaseTimers
-from ..render.pipeline import (
-    RenderStats,
-    _slot_of_pixel,
-    prepare_scene,
-    slot_geometry,
-)
-from ..render.wavefront import (
-    build_gen_par,
-    render_wave_rows,
-    whole_path_regime,
-)
+from ..render.pipeline import RenderStats, prepare_scene
+from ..render.wavefront import render_wave_rows
 
 log = logging.getLogger("zig_raytracing_contest_tpu")
 
@@ -55,15 +46,12 @@ def make_mesh(num_devices: int | None = None) -> Mesh:
     static_argnames=(
         "mesh",
         "width",
-        "height",
         "spp",
         "max_bounce",
         "wave_size",
         "num_slots",
         "slots_per_dev",
         "waves_per_dev",
-        "tiles_x",
-        "use_fused",
         "ext",
     ),
 )
@@ -78,15 +66,12 @@ def _render_sharded(
     *,
     mesh: Mesh,
     width: int,
-    height: int,
     spp: int,
     max_bounce: int,
     wave_size: int,
     num_slots: int,
     slots_per_dev: int,
     waves_per_dev: int,
-    tiles_x: int,
-    use_fused: bool | None = None,
     ext=None,
 ):
     wave_pixels = wave_size // spp
@@ -100,29 +85,16 @@ def _render_sharded(
         slot_cap = jnp.minimum(slot0 + slots_per_dev, num_slots).astype(
             jnp.int32
         )
-        par = build_gen_par(
-            scene, cam_origin, cam_lower_left, cam_right, cam_up
-        )
+        cam = (cam_origin, cam_lower_left, cam_right, cam_up)
 
         def wave_body(w, carry):
             fb, segs = carry
             # slot bases in exact int32 — a far device tile of a large
-            # image exceeds f32's 2^24 integer range (ADVICE.md r1).
+            # image exceeds f32's 2^24 integer range.
             slot_base = (slot0 + w * wave_pixels).astype(jnp.int32)
             rows3, wave_segs = render_wave_rows(
-                scene,
-                par,
-                width,
-                height,
-                spp,
-                max_bounce,
-                slot_base,
-                slot_cap,
-                wave_size,
-                base_key,
-                tiles_x,
-                use_fused,
-                ext,
+                scene, cam, width, spp, max_bounce, slot_base, slot_cap,
+                wave_size, base_key, ext,
             )
             sums = rows3.reshape(3, wave_pixels, spp).sum(axis=2)
             lp0 = w * wave_pixels
@@ -150,7 +122,7 @@ def _render_sharded(
         # the carries from varying data would insert real ops in the hot
         # loop just to satisfy the checker.  Correctness is pinned instead
         # by tests/test_sharding.py: sharded output is bit-identical to
-        # single-device for both the XLA and fused pipelines.
+        # single-device, for the XLA scan and for the trace kernel.
         check_vma=False,
     )(scene, fb, cam_origin, cam_lower_left, cam_right, cam_up, base_key)
 
@@ -161,7 +133,6 @@ def render_scene_sharded(
     config: Config,
     mesh: Mesh | None = None,
     timers: PhaseTimers | None = None,
-    use_fused: bool | None = None,
 ):
     """Multi-device render; bit-identical to the single-device path."""
     timers = timers or PhaseTimers()
@@ -177,20 +148,13 @@ def render_scene_sharded(
             f"{num_pixels} pixels × {spp} spp = {num_pixels * spp} rays "
             f"exceeds the int32 ray-id space (2^31); reduce resolution or spp."
         )
-    whole = whole_path_regime(scene, use_fused, ext)
-    num_slots, tiles_x = slot_geometry(w, h, whole)
-    if num_slots * spp >= 1 << 31:
-        raise ValueError("slot count × spp exceeds int32 ray-id space")
-    # Tiled slot order needs tile-aligned (1024-slot) device boundaries so
-    # in-kernel slot decode stays tile-exact; raster order keeps the
-    # reference-like arbitrary contiguous split.
-    if tiles_x:
-        slots_per_dev = -(-(-(-num_slots // n)) // 1024) * 1024
-    else:
-        slots_per_dev = -(-num_slots // n)
+    num_slots = num_pixels
+    # Raster order, one contiguous pixel range per device (the reference's
+    # arbitrary contiguous split).
+    slots_per_dev = -(-num_slots // n)
     rays_per_dev = slots_per_dev * spp
-    # Wave quantum: spp (whole pixel slots → scatter-free accumulation) ×
-    # 1024 (Pallas lane blocks AND 32×32 pixel tiles).
+    # Wave quantum: spp (whole pixels → scatter-free accumulation) × 1024
+    # (the trace kernel's ray blocks divide every wave).
     quantum = spp * 1024
     wave_size = max(
         quantum,
@@ -226,26 +190,18 @@ def render_scene_sharded(
             jax.device_put(jnp.uint32(config.seed), replicated),
             mesh=mesh,
             width=w,
-            height=h,
             spp=spp,
             max_bounce=config.max_bounce,
             wave_size=wave_size,
             num_slots=num_slots,
             slots_per_dev=slots_per_dev,
             waves_per_dev=waves_per_dev,
-            tiles_x=tiles_x,
-            use_fused=use_fused,
             ext=ext,
         )
-        # Strip per-device padding, then global padding; tiled order maps
-        # slots back to raster pixels with the cached permutation.
+        # Strip per-device padding, then global padding.
         fb_np = np.asarray(fb).reshape(3, n, fb_cols_per_dev)[
             :, :, :slots_per_dev
-        ].reshape(3, -1)
-        if tiles_x:
-            fb_np = fb_np[:, np.asarray(_slot_of_pixel(w, h, tiles_x))]
-        else:
-            fb_np = fb_np[:, :num_pixels]
+        ].reshape(3, -1)[:, :num_pixels]
         img = np.asarray(
             linalg.vec3_to_rgb(jnp.asarray(fb_np.T) / spp)
         ).reshape(h, w, 3)

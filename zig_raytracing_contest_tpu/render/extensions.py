@@ -4,9 +4,8 @@ These are the BASELINE.json "north star" extras (SURVEY.md §7.7) — the
 reference itself has NONE of them (plain recursive path tracing,
 src/stage3.zig:188-220; metallic/roughness ignored, src/stage1.zig:471-483)
 — so they are strictly additive and OFF by default (config keys ``nee``,
-``russian_roulette``, ``pbr``).  They run on the XLA shading path; the
-fused TPU pipeline keeps reference semantics (render_wave falls back to
-XLA shading automatically when an extension is enabled).
+``russian_roulette``, ``pbr``).  They run in render_wave's XLA shading
+loop, with whichever trace the platform uses.
 
 Estimator notes: the reference's scatter ``normalize(normal + unit_vector)``
 IS cosine-weighted hemisphere sampling, so the implicit BRDF is Lambertian

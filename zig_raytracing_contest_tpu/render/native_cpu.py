@@ -1,9 +1,9 @@
 """ctypes binding for the native C++ CPU tracer (native/cpu_tracer.cpp).
 
-This is the measured stand-in for the reference Zig binary (whose toolchain
+This is the stand-in for the reference Zig binary (whose toolchain
 is not in this image): same algorithm — per-ray grid DDA + Möller–Trumbore +
 textured diffuse path tracing over OS threads (reference:
-src/stage3.zig:222-256) — driven by the same baked scene arrays as the TPU
+src/stage3.zig:222-256) — driven by the same baked scene arrays as the device
 renderer.  ``render_cpu`` produces the BASELINE.md denominator for the
 "≥10× the CPU build" target and doubles as an independent correctness
 oracle (tests/test_native_tracer.py).

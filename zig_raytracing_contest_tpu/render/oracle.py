@@ -1,6 +1,6 @@
 """Brute-force NumPy oracle: reference semantics, no acceleration structure.
 
-Used only by tests as the conformance oracle for the TPU wavefront renderer:
+Used only by tests as the conformance oracle for the wavefront renderer:
 primary visibility must match exactly (the grid may never change which
 triangle a ray hits), and multi-bounce renders must agree statistically at
 high spp (bit-exact RNG parity is impossible; SURVEY.md §7.5).

@@ -1,6 +1,6 @@
 """Pure-Python glTF 2.0 / GLB document parser.
 
-TPU-native replacement for the reference's zgltf submodule + loader stage1
+Replacement for the reference's zgltf submodule + loader stage1
 (src/stage1.zig:75-110).  Host-side by design: the reference also parses on
 the CPU outside the render timer.  Supported surface mirrors the subset the
 reference consumes (SURVEY.md C5-C9) plus safe supersets:
@@ -16,8 +16,8 @@ reference consumes (SURVEY.md C5-C9) plus safe supersets:
   alphaMode/alphaCutoff), samplers (wrap modes), textures, images.
 
 Image decode fans out across a host thread pool, mirroring the reference's
-round-robin image decode workers (src/stage1.zig:30-66) — it is I/O/PIL-bound
-host work, so OS threads are the right tool on the TPU host too.
+round-robin image decode workers (src/stage1.zig:30-66) — zlib and numpy
+release the interpreter lock, so OS threads are the right tool here too.
 """
 
 from __future__ import annotations

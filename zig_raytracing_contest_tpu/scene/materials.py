@@ -1,4 +1,4 @@
-"""Material/texture baking into TPU-friendly flat texture banks.
+"""Material/texture baking into flat texture banks.
 
 Mirrors stage1.loadMaterials (src/stage1.zig:381-496): per material, three
 logical textures — base_color (RGB × baseColorFactor), emissive (RGB ×
@@ -9,14 +9,14 @@ dummies holding the factor (src/stage1.zig:411-425).  Sampler clamp_to_edge
 sets per-axis clamp ranges; anything else is repeat encoded as the full
 int32 range (src/stage1.zig:381-409).
 
-TPU re-design: all texels concatenate into ONE flat (P, 4) RGBA bank with
+Re-design: all texels concatenate into ONE flat (P, 4) RGBA bank with
 per-texture descriptor rows [offset, w, h, u_min, u_max, v_min, v_max]
 (int32).  The reference's separate transparency texture is, by construction,
 the alpha channel of the very same base-color image (src/stage1.zig:449-452)
 — so opacity rides in channel 3 of the base-color entry and one bilinear
 sample yields albedo AND opacity (per-texel MASK thresholding is baked, then
 bilinear, exactly like the reference's order).  This halves the texel
-gathers in the shading hot path — gathers, not FLOPs, are what TPUs punish.
+gathers in the shading hot path.
 Emissive entries carry 1.0 in channel 3.
 """
 
@@ -65,11 +65,10 @@ class MaterialBank:
 def _quantize_bank(color_data: np.ndarray, color_desc: np.ndarray):
     """Quantize every texture entry to u16 × per-entry scale, in place.
 
-    The TPU fused pipeline gathers texels as TWO u16-packed uint32 rows
-    instead of four f32 rows (texel gathers are the profiled #1 cost,
-    docs/PERFORMANCE.md); the f32 bank is rewritten to the dequantized
-    values so every backend (XLA, Pallas, native C++) samples bit-identical
-    texels.  Sources are 8-bit LDR (stb loadf semantics), so 16-bit
+    The f32 bank is rewritten to the dequantized values, so a u16 texel
+    bank with a per-texture scale (``color_u16`` × ``color_scale``)
+    samples bit-identically to it; the goldens were rendered from this
+    bank.  Sources are 8-bit LDR (stb loadf semantics), so 16-bit
     relative-to-max quantization is far below the source's own precision.
     Texels are clamped at 0 (glTF factors and decoded colors are
     non-negative).

@@ -1,19 +1,18 @@
 """Device-side scene representation: flat SoA jnp arrays.
 
-TPU analogue of the reference's baked Scene (src/stage3.zig:136-141): grid +
-[begin, end) cell ranges + SoA triangles.  Hot-path position data
+Device analogue of the reference's baked Scene (src/stage3.zig:136-141):
+grid + [begin, end) cell ranges + SoA triangles.  Hot-path position data
 (Möller–Trumbore precomputed v0/e1/e2, src/linalg.zig:688-694) is duplicated
 per overlapping cell in DDA-visit order exactly like bakeInto
 (src/stage2.zig:137-164).
 
-Shading data is re-laid-out for gather economy (gathers are the scarce
-resource on TPU, not memory): one fat (T, 32) f32 record per unique
-triangle packs vertex normals (9), vertex uvs (6), the base-color texture
-descriptor (7) and the emissive descriptor (7) — so the whole shading stage
-is ONE row gather plus two bilinear texture lookups from the unified RGBA
-bank.  Descriptor ints are stored as f32; repeat-mode sentinel bounds are
-clamped to ±2^30 (exactly representable, still larger than any real texel
-coordinate after the sampler's own safety clamp).
+Shading data is one (T, 32) f32 record per unique triangle packing vertex
+normals (9), vertex uvs (6), the base-color texture descriptor (8) and the
+emissive descriptor (8) — so the shading stage is ONE row gather plus two
+bilinear texture lookups from the unified RGBA bank.  Descriptor ints are
+stored as f32; repeat-mode sentinel bounds are clamped to ±2^30 (exactly
+representable, still larger than any real texel coordinate after the
+sampler's own safety clamp).
 """
 
 from __future__ import annotations
@@ -25,176 +24,9 @@ import numpy as np
 
 from ..grid.builder import GridBuild
 from ..ops.dda import GridParams
-from ..ops.mxu_intersect import (
-    TRI_TILE,
-    TRI_TILE_SMALL,
-    VMEM_RESIDENT_MAX_TRIS,
-    MXUTriangles,
-    bake_triangles,
-)
+from ..ops.mxu_intersect import TRI_TILE, MXUTriangles, bake_triangles
 from .geometry import GeometryArrays
 from .materials import MaterialBank
-
-# Auto-backend cap for the MXU path.  Up to ~64k triangles the transform
-# bank is VMEM-resident; beyond that the streaming trace kernel DMAs culled
-# tiles from HBM (ops/mxu_intersect.py).  Scenes past the cap use the
-# grid/DDA fallback — the cap only bounds host bake memory (the bake holds
-# a few (13, T) f32 copies): at 2^24 that is ~2.6 GB host-side.  There is
-# no device-side cliff below it: past STREAM_MAX_TILES · TRI_TILE
-# triangles the bake doubles the tile size (coarser culls, same SMEM
-# tables), so throughput degrades smoothly instead of dropping 30× onto
-# the grid path (round-2 VERDICT item 6).
-MXU_BACKEND_MAX_TRIANGLES = 1 << 24
-
-# Streaming-bake SMEM budget: the per-tile bbox table is (6, tiles) f32 in
-# SMEM.  8192 tiles (= 2^21 triangles at tile 256) is the largest table
-# proven on-chip; bigger scenes grow the TILE, not the table.
-STREAM_MAX_TILES = 8192
-
-
-def _stream_tile(num_triangles: int) -> int:
-    tile = TRI_TILE
-    while num_triangles > tile * STREAM_MAX_TILES:
-        tile *= 2
-    return tile
-
-# Texel banks up to this many texels take the one-hot-MXU fetch path
-# (render/fused.py single-kernel shading).  Bound sets the in-kernel
-# one-hot transient: (Pp, 512) f32 = 2 MB at 1024.
-ONEHOT_MAX_TEXELS = 1024
-
-# Paged in-kernel texel fetch (render/fused.py _fetch_paged): banks past
-# the one-hot budget but within this cap are baked as CORNER-EXPANDED
-# PAGE_TEXELS-texel pages; the shade kernels loop over the pages a lane block
-# demands, fetching ALL FOUR bilinear corners of all four channels with
-# ONE one-hot dot per texture.  Banks ≤ 4 MB (2^16 texels at the 64 B/
-# texel expansion — a 256×256 RGBA texture exactly) stay VMEM-resident;
-# bigger ones live in HBM and each demanded page is DMA'd through a
-# double-buffered VMEM scratch (fused.PAGED_VMEM_MAX_BYTES), so a
-# 512×512–1024×1024-textured scene keeps the single-kernel shade regime.
-# The cap bounds bake cost and HBM (64 MB at 2^20); beyond it the scene
-# takes the per-bounce XLA-gather regime.
-PAGED_MAX_TEXELS = 1 << 20
-# Page size is a measured optimum, not a guess: 8192-texel pages (4×
-# fewer loop iterations in theory) measured WORSE on-chip — official
-# scene with a 128² floor 14.4 → 10.5 Mrays/s, 512² floor 7.8 → 5.2 —
-# because (a) the page-slice dot DOES scale with PAGE_ROWS (M=32 is
-# cheaper than M=128 on the MXU; "pads to 128 anyway" is false) and
-# (b) iterations barely dropped: texel indices are row-major, so a
-# beam's square uv footprint spans many TEXTURE ROWS and therefore many
-# pages at any page size.  The footprint problem is solved by the 2-D
-# TILED page layout below (each page covers a 64×32-texel rectangle),
-# not by bigger pages.
-PAGE_TEXELS = 2048
-PAGE_SUB = PAGE_TEXELS // 1024  # 1024-column sub-blocks per page
-PAGE_ROWS = 16 * PAGE_SUB  # 4 corners × 4 channels × PAGE_SUB sub-blocks
-
-# 2-D page tiling: each page of a LARGE texture covers a 64×32-texel
-# rectangle instead of PAGE_TEXELS/width consecutive rows.  Row-major
-# paging made demanded-pages-per-chunk scale with the beam footprint's
-# HEIGHT in texture rows (a 512-wide texture packs only 4 rows per
-# page, so a 50-row-tall footprint demanded ~13 pages); a 64×32 tile
-# covers the same square footprint in 1-4 pages.  SMALL textures (fit
-# within one tile, incl. every 1×1 dummy) pack contiguously row-major
-# at the front of the bank so they share pages — giving each its own
-# page would spread the emissive-dummy fetch across one page PER
-# MATERIAL.  The in-kernel index math mirrors this split
-# (render/fused.py _prep_math tiled branch).
-PAGE_TILE_W = 64
-PAGE_TILE_H = PAGE_TEXELS // PAGE_TILE_W  # 32
-
-
-def _tiled_texel_map(P: int, color_desc: np.ndarray):
-    """Row-major texel index → tiled bank position.
-
-    Returns ``(q, off_map, padded_total)``: q is (P,) int64 (bank
-    position of each row-major texel), off_map is (T,) int64 (each
-    texture's bank base — what descriptor offsets remap to), and
-    padded_total is the bank's texel capacity (multiple of PAGE_TEXELS;
-    large textures pad each axis to tile multiples)."""
-    desc = np.asarray(color_desc, np.int64)
-    offs, ws, hs = desc[:, 0], desc[:, 1], desc[:, 2]
-    small = (ws <= PAGE_TILE_W) & (hs <= PAGE_TILE_H)
-    off_map = np.zeros(len(offs), np.int64)
-    pos = 0
-    for i in np.nonzero(small)[0]:
-        off_map[i] = pos
-        pos += ws[i] * hs[i]
-    pos = -(-pos // PAGE_TEXELS) * PAGE_TEXELS
-    tiles_x = -(-ws // PAGE_TILE_W)
-    for i in np.nonzero(~small)[0]:
-        off_map[i] = pos
-        pos += tiles_x[i] * (-(-hs[i] // PAGE_TILE_H)) * PAGE_TEXELS
-    padded_total = int(-(-pos // PAGE_TEXELS) * PAGE_TEXELS)
-
-    p = np.arange(P, dtype=np.int64)
-    t = np.searchsorted(offs, p, side="right") - 1
-    local = p - offs[t]
-    y, x = np.divmod(local, ws[t])
-    q_big = (
-        off_map[t]
-        + ((y // PAGE_TILE_H) * tiles_x[t] + x // PAGE_TILE_W) * PAGE_TEXELS
-        + (y % PAGE_TILE_H) * PAGE_TILE_W
-        + x % PAGE_TILE_W
-    )
-    q = np.where(small[t], off_map[t] + local, q_big)
-    return q, off_map, padded_total
-
-
-def _paged_corner_maps(P: int, color_desc: np.ndarray) -> np.ndarray:
-    """(4, P) int64 texel index per bilinear corner of each base texel.
-
-    Corner 0 is the texel itself; 1 its +x neighbor, 2 its +y neighbor,
-    3 both — under the TEXTURE'S OWN wrap mode (repeat: (x+1) mod w;
-    clamp: min(x+1, w-1)), mirroring _texel_pair (render/fused.py): for
-    an in-range base texel the reference's second bilinear texel IS this
-    neighbor on both axes, and the collapsed clamp cases are reconciled
-    in-kernel by index-equality selects (bit-exact)."""
-    from .materials import INT32_MIN
-
-    corners = np.tile(np.arange(P, dtype=np.int64), (4, 1))
-    for off, w, h, u_min, _umax, v_min, _vmax in np.asarray(
-        color_desc, np.int64
-    ):
-        n = w * h
-        x = np.arange(w, dtype=np.int64)
-        y = np.arange(h, dtype=np.int64)
-        nx = (x + 1) % w if u_min == INT32_MIN else np.minimum(x + 1, w - 1)
-        ny = (y + 1) % h if v_min == INT32_MIN else np.minimum(y + 1, h - 1)
-        yy, xx = np.meshgrid(y, x, indexing="ij")
-        nyy, nxx = np.meshgrid(ny, nx, indexing="ij")
-        sl = slice(off, off + n)
-        corners[0, sl] = (off + yy * w + xx).ravel()
-        corners[1, sl] = (off + yy * w + nxx).ravel()
-        corners[2, sl] = (off + nyy * w + xx).ravel()
-        corners[3, sl] = (off + nyy * w + nxx).ravel()
-    return corners
-
-
-def _pack_paged_bank(
-    color_u16: np.ndarray, color_desc: np.ndarray
-) -> np.ndarray:
-    """(P, 4) u16 + descriptors → (pages·PAGE_ROWS, 1024) f32 u16-VALUED
-    corner-expanded paged bank in the TILED layout (_tiled_texel_map).
-
-    Page p occupies rows [PAGE_ROWS·p, PAGE_ROWS·(p+1)); within a page,
-    row = (4·corner + channel)·PAGE_SUB + sub and column = q & 1023,
-    where q = the texel's TILED bank position and sub = bits 10.. of the
-    in-page q — so slicing one page yields a (PAGE_ROWS, 1024) block
-    whose single one-hot dot against a (1024, CH) column mask fetches
-    all four corners × four channels × every sub-block at once
-    (render/fused.py _fetch_paged).  The record's descriptor offsets and
-    color_packed_t are remapped to the same tiled space at bake
-    (build_device_scene), so every fused-path artifact agrees."""
-    P = color_u16.shape[0]
-    q, _, padded_total = _tiled_texel_map(P, color_desc)
-    pages = padded_total // PAGE_TEXELS
-    corners = _paged_corner_maps(P, color_desc)  # (4, P)
-    a = np.zeros((4, padded_total, 4), np.float32)
-    a[:, q] = color_u16.astype(np.float32)[corners]  # (4, P, 4) scattered
-    # (corner, p, sub, col, c) → (p, corner, c, sub, col)
-    a = a.reshape(4, pages, PAGE_SUB, 1024, 4).transpose(1, 0, 4, 2, 3)
-    return np.ascontiguousarray(a.reshape(pages * PAGE_ROWS, 1024))
 
 # shade_table column layout
 COL_NRM = 0  # 9 cols: 3 vertices × xyz (world, normalized)
@@ -202,53 +34,9 @@ COL_UV = 9  # 6 cols: 3 vertices × uv
 COL_BASE_DESC = 15  # 8 cols: base-color descriptor (f32-encoded) + dequant scale
 COL_EMIS_DESC = 23  # 8 cols: emissive descriptor + dequant scale
 DESC_SCALE = 7  # descriptor col: u16 dequant multiplier (texture peak / 65535)
-SHADE_COLS = 32  # padded for tiling
+SHADE_COLS = 32
 
 _DESC_SENTINEL = float(1 << 30)
-
-# Packed per-triangle record for the FUSED pipeline only (shade_table_t):
-# 24 rows instead of 32 — the record gather is the other half of the
-# profiled gather cost.  Descriptors compress to 4 cols: [offset, ±w, ±h,
-# dequant scale], negative w/h meaning repeat wrap on that axis (clamp
-# bounds are always [0, size-1], so they are derivable).  The XLA path
-# keeps the full shade_table.
-PCOL_NRM = 0  # 9
-PCOL_UV = 9  # 6
-PCOL_BASE = 15  # 4: off, ±w, ±h, scale
-PCOL_EMIS = 19  # 4
-PACKED_COLS = 24  # padded (sublane-friendly)
-
-
-def build_packed_record(
-    shade_np: np.ndarray, tex_remap=None
-) -> np.ndarray:
-    """(T, 32) shade table → (T, 24) fused-pipeline record.
-
-    ``tex_remap``: optional (row_major_offsets, tiled_offsets) pair from
-    _tiled_texel_map — when the scene bakes a TILED paged bank, every
-    descriptor offset in the record is rewritten to the texture's tiled
-    bank base so the fused kernels' index math lands in that bank."""
-    T = shade_np.shape[0]
-    packed = np.zeros((T, PACKED_COLS), np.float32)
-    packed[:, PCOL_NRM : PCOL_NRM + 15] = shade_np[:, COL_NRM : COL_NRM + 15]
-    for src, dst in ((COL_BASE_DESC, PCOL_BASE), (COL_EMIS_DESC, PCOL_EMIS)):
-        w = shade_np[:, src + 1]
-        h = shade_np[:, src + 2]
-        u_repeat = shade_np[:, src + 3] < 0  # sentinel lower bound = repeat
-        v_repeat = shade_np[:, src + 5] < 0
-        off = shade_np[:, src + 0]
-        if tex_remap is not None:
-            offs_rm, offs_tiled = tex_remap
-            t = np.searchsorted(offs_rm, off.astype(np.int64))
-            assert np.all(offs_rm[t] == off.astype(np.int64)), (
-                "descriptor offset not a texture base"
-            )
-            off = offs_tiled[t].astype(np.float32)
-        packed[:, dst + 0] = off
-        packed[:, dst + 1] = np.where(u_repeat, -w, w)
-        packed[:, dst + 2] = np.where(v_repeat, -h, h)
-        packed[:, dst + 3] = shade_np[:, src + DESC_SCALE]
-    return packed
 
 
 class DeviceScene(NamedTuple):
@@ -260,51 +48,12 @@ class DeviceScene(NamedTuple):
     tri_e1: jnp.ndarray  # (D, 3) f32
     tri_e2: jnp.ndarray  # (D, 3) f32
     dup_to_tri: jnp.ndarray  # (D,) int32
-    # Unique-triangle shading records + unified RGBA texture bank.
-    # Row layout (P, 4): texel fetches are (R, 4) row gathers — on v5e,
-    # gather ops have high fixed cost, so fewer wide gathers beat many
-    # dense (R,) ones (measured both ways).
+    # Unique-triangle shading records + unified RGBA texture bank
+    # (texel fetches are (R, 4) row gathers).
     shade_table: jnp.ndarray  # (T, 32) f32
     color_data: jnp.ndarray  # (P, 4) f32 (channel 3 = opacity semantics)
-    # MXU brute-force backend (None → grid/gather traversal is used):
+    # Baked bank for brute-force tracing (None → grid DDA is used):
     mxu: MXUTriangles | None = None
-    # Fused-pipeline variants (None unless mxu is built): field-major and
-    # pre-permuted so the hot loop needs no transposes or perm gathers —
-    # shade_table_t is the PACKED (24, Tp) record in Morton order (see
-    # build_packed_record); color_data_t is (4, P).
-    shade_table_t: jnp.ndarray | None = None
-    color_data_t: jnp.ndarray | None = None
-    # u16×2-packed texel bank (2, P) uint32: row 0 = R | G<<16, row 1 =
-    # B | A<<16.  The fused texel gather moves HALF the elements of the f32
-    # bank; the shade kernel dequantizes with the descriptor's scale,
-    # bit-identical to the f32 bank by construction (materials._quantize_bank).
-    color_packed_t: jnp.ndarray | None = None
-    # Small-bank fast path: (4, Pp) f32 u16-VALUED texel channels (R,G,B,A
-    # rows), lane-padded.  Present only when the whole bank fits the
-    # one-hot-MXU fetch budget (ONEHOT_MAX_TEXELS); render/fused.py then
-    # shades a bounce in ONE kernel — texel "gathers" become in-kernel
-    # one-hot matmuls and no XLA runs between trace and shade.
-    color_u16f_t: jnp.ndarray | None = None
-    # Mid-size-bank fast path: (pages·PAGE_ROWS, 1024) f32 u16-VALUED paged texel
-    # bank (_pack_paged_bank layout).  Present when the bank exceeds the
-    # one-hot budget but fits PAGED_MAX_TEXELS; the fused kernels then
-    # while-loop over a lane block's demanded pages (beam-sorted blocks
-    # touch few), fetching each page with one one-hot dot — real-texture
-    # scenes keep the single-kernel/whole-path regime instead of falling
-    # back to per-bounce XLA gathers (round-2 VERDICT item 3).
-    color_paged_t: jnp.ndarray | None = None
-    # Static marker (None vs present IS the flag — pytree structure, so the
-    # fused pipeline can branch on it at trace time): present when every
-    # material's emissive entry is a 1×1 dummy (factor only), letting the
-    # shade pipeline fetch one emissive texel instead of four.
-    emissive_all_dummy: jnp.ndarray | None = None
-    # Static marker: the bake produced the TILED texel layout
-    # (_tiled_texel_map) — shade_table_t offsets, color_packed_t, and
-    # color_paged_t all live in tiled bank space, and the fused kernels'
-    # texel-index math must use the tiled formula (fused._prep_math).
-    # Kept separate from color_paged_t so forcing the gather path
-    # (e.g. tests nulling the bank) stays consistent.
-    tiled_layout: jnp.ndarray | None = None
     # Extension data (render/extensions.py; the reference has none of this):
     # emissive-triangle sampling table for NEE, and per-unique-triangle
     # (metallic, roughness) factors for the pbr scatter.
@@ -320,30 +69,6 @@ def _build_lights(geometry, materials):
     return build_light_set(geometry, materials)
 
 
-def _pack_color_bank(color_u16: np.ndarray) -> np.ndarray:
-    """(P, 4) u16 → (2, P) int32 u16×2-packed bank (R|G<<16, B|A<<16);
-    int32 (same bit pattern) for gather friendliness."""
-    return np.stack(
-        [
-            color_u16[:, 0].astype(np.uint32)
-            | (color_u16[:, 1].astype(np.uint32) << 16),
-            color_u16[:, 2].astype(np.uint32)
-            | (color_u16[:, 3].astype(np.uint32) << 16),
-        ]
-    ).view(np.int32)
-
-
-def _scatter_tiled(bank_rows: np.ndarray, paged_layout) -> np.ndarray:
-    """(K, P) per-texel bank → (K, padded_total) in the tiled layout
-    (_tiled_texel_map), zero-filled padding.  Keeps the 3-stage gather
-    path consistent with the tiled record offsets when a paged bank was
-    baked (the gather indices are computed by the SAME tiled formula)."""
-    q, _, padded_total = paged_layout
-    out = np.zeros((bank_rows.shape[0], padded_total), bank_rows.dtype)
-    out[:, q] = bank_rows
-    return out
-
-
 def _desc_to_f32(desc_rows: np.ndarray) -> np.ndarray:
     d = desc_rows.astype(np.float64)
     return np.clip(d, -_DESC_SENTINEL, _DESC_SENTINEL).astype(np.float32)
@@ -352,7 +77,7 @@ def _desc_to_f32(desc_rows: np.ndarray) -> np.ndarray:
 def build_shade_table(geometry: GeometryArrays, materials: MaterialBank) -> np.ndarray:
     if materials.color_data.shape[0] > 1 << 24:
         # Texture descriptors ride the shade table as f32; offsets past 2^24
-        # would silently round to the wrong texel (ADVICE.md r1).
+        # would silently round to the wrong texel.
         raise ValueError(
             f"texel bank has {materials.color_data.shape[0]} texels; f32 "
             f"descriptor offsets are exact only below 2^24 (~two 4K×4K "
@@ -383,14 +108,15 @@ def build_device_scene(
     materials: MaterialBank,
     backend: str = "auto",
 ) -> DeviceScene:
-    """backend: 'auto' | 'mxu' | 'grid'.  'auto' picks the MXU brute-force
-    intersector for scenes small enough that dense tile math beats traversal
-    (TPUs punish gathers, not FLOPs), else the grid."""
+    """backend: 'auto' | 'mxu' | 'grid'.  'mxu' bakes the triangle bank
+    for brute-force tracing with box culls, 'grid' traces through the grid
+    DDA.  'auto' is the bank: on an H100 the bank's trace kernel rendered
+    both the 804-triangle contest scene and the 100k-triangle terrain
+    faster end to end than the grid DDA (PERF.md), so no triangle count
+    switches to the grid."""
     if backend not in ("auto", "mxu", "grid"):
         raise ValueError(f"unknown backend {backend!r}")
-    use_mxu = backend == "mxu" or (
-        backend == "auto" and geometry.num_triangles <= MXU_BACKEND_MAX_TRIANGLES
-    )
+    use_bank = backend != "grid"
 
     dup = grid.dup_to_tri.astype(np.int64)
     p0 = geometry.positions[dup, 0]
@@ -402,40 +128,16 @@ def build_device_scene(
     def pad1(a):
         return np.concatenate([a, np.zeros((1,) + a.shape[1:], a.dtype)], axis=0)
 
-    shade_np = build_shade_table(geometry, materials)
-    # Finer 128-triangle tiles for VMEM-resident scenes: tighter cull
-    # boxes, measured +17% on the official bench and +18% on the 100k-
-    # triangle bench; the HBM-streaming regime keeps 256 (finer tiles
-    # measured worse there — per-tile DMA overhead beats the culling).
-    mxu = (
+    bank = (
         bake_triangles(
             geometry.positions[:, 0],
             geometry.positions[:, 1] - geometry.positions[:, 0],
             geometry.positions[:, 2] - geometry.positions[:, 0],
-            tile=(
-                TRI_TILE_SMALL
-                if geometry.num_triangles <= VMEM_RESIDENT_MAX_TRIS
-                else _stream_tile(geometry.num_triangles)
-            ),
+            tile=TRI_TILE,
         )
-        if use_mxu
+        if use_bank
         else None
     )
-    # Paged-bank decision up front: the TILED layout pads large textures
-    # to 64×32-tile multiples, so the PAGED_MAX_TEXELS cap applies to the
-    # PADDED capacity (what the bank actually allocates), not the raw
-    # texel count.
-    paged_layout = None
-    if (
-        mxu is not None
-        and materials.color_u16 is not None
-        and materials.color_u16.shape[0] > ONEHOT_MAX_TEXELS
-    ):
-        q_map, off_map, padded_total = _tiled_texel_map(
-            materials.color_u16.shape[0], materials.color_desc
-        )
-        if padded_total <= PAGED_MAX_TEXELS:
-            paged_layout = (q_map, off_map, padded_total)
     return DeviceScene(
         grid=GridParams(
             bbox_min=jnp.asarray(grid.bbox_min, jnp.float32),
@@ -449,81 +151,9 @@ def build_device_scene(
         tri_e1=jnp.asarray(pad1(p1 - p0), jnp.float32),
         tri_e2=jnp.asarray(pad1(p2 - p0), jnp.float32),
         dup_to_tri=jnp.asarray(pad1(grid.dup_to_tri), jnp.int32),
-        shade_table=jnp.asarray(shade_np),
+        shade_table=jnp.asarray(build_shade_table(geometry, materials)),
         color_data=jnp.asarray(materials.color_data, jnp.float32),
-        mxu=mxu,
-        shade_table_t=(
-            jnp.asarray(
-                np.ascontiguousarray(
-                    build_packed_record(
-                        shade_np,
-                        tex_remap=(
-                            (
-                                np.asarray(
-                                    materials.color_desc[:, 0], np.int64
-                                ),
-                                paged_layout[1],
-                            )
-                            if paged_layout is not None
-                            else None
-                        ),
-                    )[np.asarray(mxu.perm)].T
-                )
-            )
-            if mxu is not None
-            else None
-        ),
-        color_data_t=(
-            jnp.asarray(np.ascontiguousarray(materials.color_data.T), jnp.float32)
-            if mxu is not None
-            else None
-        ),
-        color_packed_t=(
-            jnp.asarray(
-                _pack_color_bank(materials.color_u16)
-                if paged_layout is None
-                else _scatter_tiled(
-                    _pack_color_bank(materials.color_u16), paged_layout
-                )
-            )
-            if mxu is not None and materials.color_u16 is not None
-            else None
-        ),
-        color_u16f_t=(
-            jnp.asarray(
-                np.pad(
-                    materials.color_u16.T.astype(np.float32),
-                    ((0, 0), (0, -(-materials.color_u16.shape[0] // 128) * 128
-                              - materials.color_u16.shape[0])),
-                )
-            )
-            if mxu is not None
-            and materials.color_u16 is not None
-            and materials.color_u16.shape[0] <= ONEHOT_MAX_TEXELS
-            else None
-        ),
-        color_paged_t=(
-            jnp.asarray(
-                _pack_paged_bank(materials.color_u16, materials.color_desc)
-            )
-            if paged_layout is not None
-            else None
-        ),
-        tiled_layout=(
-            jnp.zeros(0, jnp.float32) if paged_layout is not None else None
-        ),
-        emissive_all_dummy=(
-            jnp.zeros(0, jnp.float32)
-            if mxu is not None
-            and bool(
-                np.all(
-                    materials.color_desc[materials.mat_emissive, 1]
-                    * materials.color_desc[materials.mat_emissive, 2]
-                    == 1
-                )
-            )
-            else None
-        ),
+        mxu=bank,
         lights=_build_lights(geometry, materials),
         ext_mr=(
             jnp.asarray(
